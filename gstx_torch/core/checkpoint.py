@@ -1,0 +1,167 @@
+"""Weight bridge: a JAX ``gstx`` param tree to the port's state dict.
+
+The port's modules carry the reference PyTorch state-dict names
+(``encoder.bert_pretrained.{bert,cls}.*``, ``vlfusion.*``,
+``decoder.decoder.{bert,lm_head}.*``), so this is the port's own copy of
+the converter ``gstx/core/checkpoint.py::to_torch_state_dict`` (lines
+313-458): it splits each fused QKV kernel into query/key/value projections,
+transposes Flax ``Dense`` kernels (``[in, out]``) into ``nn.Linear`` weights
+(``[out, in]``), and emits the tied duplicates.  Released reference
+checkpoints then load with ``load_state_dict(strict=True)``.
+
+The co-attention ``biOutput.q_dense1/q_dense2`` projections exist in the
+reference model but are never called in its forward pass.  The port OWNS
+those names (as unused ``nn.Linear``s, see
+``gstx_torch/models/two_stream.py::BiOutput``), so a reference checkpoint
+loads strictly; the bridge fills them with zeros, as the JAX converter does.
+
+Input arrays are numpy (a test calls ``jax.device_get`` on the JAX tree);
+nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def state_dict_from_jax(params: dict, with_decoder: bool = True,
+                        enc_prefix: str = "encoder.bert_pretrained"
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of numpy arrays) -> float32 state dict
+    in the reference layout."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    bert = f"{enc_prefix}.bert"
+    cls = f"{enc_prefix}.cls"
+
+    def arr(x):
+        return np.asarray(x, dtype=np.float32)
+
+    def put_dense(prefix, node):
+        sd[f"{prefix}.weight"] = arr(node["kernel"]).T
+        sd[f"{prefix}.bias"] = arr(node["bias"])
+
+    def put_ln(prefix, node):
+        sd[f"{prefix}.weight"] = arr(node["scale"])
+        sd[f"{prefix}.bias"] = arr(node["bias"])
+
+    def put_qkv(prefix, node, names=("query", "key", "value")):
+        ks = np.split(arr(node["kernel"]), len(names), axis=1)
+        bs = np.split(arr(node["bias"]), len(names), axis=0)
+        for name, kk, bb in zip(names, ks, bs):
+            sd[f"{prefix}.{name}.weight"] = kk.T
+            sd[f"{prefix}.{name}.bias"] = bb
+
+    def put_embeddings(prefix, emb):
+        for name in ("word_embeddings", "position_embeddings",
+                     "token_type_embeddings",
+                     "token_type_embeddings_extension"):
+            sd[f"{prefix}.{name}.weight"] = arr(emb[name]["embedding"])
+        sd[f"{prefix}.sep_embeddings.weight"] = arr(emb["sep_embeddings"])
+        put_ln(f"{prefix}.LayerNorm", emb["ln"])
+
+    enc = p["encoder"]
+    put_embeddings(f"{bert}.embeddings", enc["embeddings"])
+    put_dense(f"{bert}.v_embeddings.image_embeddings",
+              enc["v_embeddings"]["image_embeddings"])
+    put_dense(f"{bert}.v_embeddings.image_location_embeddings",
+              enc["v_embeddings"]["image_location_embeddings"])
+    put_ln(f"{bert}.v_embeddings.LayerNorm", enc["v_embeddings"]["ln"])
+
+    def put_stream(prefix, node):
+        put_qkv(f"{prefix}.attention.self", node["attention"]["qkv"])
+        put_dense(f"{prefix}.attention.output.dense", node["attention"]["out"])
+        put_ln(f"{prefix}.attention.output.LayerNorm",
+               node["attention"]["out_ln"])
+        put_dense(f"{prefix}.intermediate.dense", node["ffn"]["intermediate"])
+        put_dense(f"{prefix}.output.dense", node["ffn"]["output"])
+        put_ln(f"{prefix}.output.LayerNorm", node["ffn"]["output_ln"])
+
+    for name, node in enc["encoder"].items():
+        m = re.fullmatch(r"(v_|c_)?layer_(\d+)", name)
+        if m is None:
+            continue
+        kind, idx = m.group(1) or "", m.group(2)
+        prefix = f"{bert}.encoder.{kind}layer.{idx}"
+        if kind != "c_":
+            put_stream(prefix, node)
+            continue
+        put_qkv(f"{prefix}.biattention", node["biattention"]["qkv1"],
+                ("query1", "key1", "value1"))
+        put_qkv(f"{prefix}.biattention", node["biattention"]["qkv2"],
+                ("query2", "key2", "value2"))
+        put_dense(f"{prefix}.biOutput.dense1", node["v_dense"])
+        put_ln(f"{prefix}.biOutput.LayerNorm1", node["v_ln"])
+        put_dense(f"{prefix}.biOutput.dense2", node["t_dense"])
+        put_ln(f"{prefix}.biOutput.LayerNorm2", node["t_ln"])
+        bi, v_hidden = arr(node["v_dense"]["kernel"]).shape
+        hidden = arr(node["t_dense"]["kernel"]).shape[1]
+        # never used in the forward pass; zero-filled for a strict load
+        sd[f"{prefix}.biOutput.q_dense1.weight"] = np.zeros(
+            (v_hidden, bi), np.float32)
+        sd[f"{prefix}.biOutput.q_dense1.bias"] = np.zeros(v_hidden,
+                                                          np.float32)
+        sd[f"{prefix}.biOutput.q_dense2.weight"] = np.zeros(
+            (hidden, bi), np.float32)
+        sd[f"{prefix}.biOutput.q_dense2.bias"] = np.zeros(hidden, np.float32)
+        for side in ("v", "t"):
+            ffn = node[f"{side}_ffn"]
+            put_dense(f"{prefix}.{side}_intermediate.dense",
+                      ffn["intermediate"])
+            put_dense(f"{prefix}.{side}_output.dense", ffn["output"])
+            put_ln(f"{prefix}.{side}_output.LayerNorm", ffn["output_ln"])
+
+    put_dense(f"{bert}.t_pooler.dense", enc["t_pooler"]["dense"])
+    put_dense(f"{bert}.v_pooler.dense", enc["v_pooler"]["dense"])
+
+    heads = p["cls"]
+    put_dense(f"{cls}.predictions.transform.dense",
+              heads["transform"]["dense"])
+    put_ln(f"{cls}.predictions.transform.LayerNorm", heads["transform"]["ln"])
+    sd[f"{cls}.predictions.bias"] = arr(heads["mlm_bias"])
+    # tied to the word-embedding table
+    sd[f"{cls}.predictions.decoder.weight"] = arr(
+        enc["embeddings"]["word_embeddings"]["embedding"])
+    put_dense(f"{cls}.bi_seq_relationship", heads["bi_seq_relationship"])
+    put_dense(f"{cls}.imagePredictions.transform.dense",
+              heads["img_transform"]["dense"])
+    put_ln(f"{cls}.imagePredictions.transform.LayerNorm",
+           heads["img_transform"]["ln"])
+    put_dense(f"{cls}.imagePredictions.decoder", heads["img_decoder"])
+
+    if with_decoder and "decoder" in p:
+        dec = p["decoder"]
+        dbert = "decoder.decoder.bert"
+        # the decoder's input embeddings ARE the encoder's (tied module)
+        put_embeddings(f"{dbert}.embeddings", enc["embeddings"])
+        for name, node in dec.items():
+            m = re.fullmatch(r"layer_(\d+)", name)
+            if m is None:
+                continue
+            prefix = f"{dbert}.encoder.layer.{m.group(1)}"
+            put_qkv(f"{prefix}.attention.self", node["qkv"])
+            put_dense(f"{prefix}.attention.output.dense", node["self_out"])
+            put_ln(f"{prefix}.attention.output.LayerNorm", node["self_ln"])
+            put_dense(f"{prefix}.crossattention.self.query", node["cross_q"])
+            put_qkv(f"{prefix}.crossattention.self", node["cross_kv"],
+                    ("key", "value"))
+            put_dense(f"{prefix}.crossattention.output.dense",
+                      node["cross_out"])
+            put_ln(f"{prefix}.crossattention.output.LayerNorm",
+                   node["cross_ln"])
+            put_dense(f"{prefix}.intermediate.dense", node["intermediate"])
+            put_dense(f"{prefix}.output.dense", node["output"])
+            put_ln(f"{prefix}.output.LayerNorm", node["output_ln"])
+        # independent LM projection; its bias is one tensor under two names
+        sd["decoder.decoder.lm_head.decoder.weight"] = arr(dec["lm_weight"])
+        sd["decoder.decoder.lm_head.bias"] = arr(dec["lm_bias"])
+        sd["decoder.decoder.lm_head.decoder.bias"] = arr(dec["lm_bias"])
+        put_dense("vlfusion.fc_l", p["fusion_fc_l"])
+        put_dense("vlfusion.fc_v", p["fusion_fc_v"])
+
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}

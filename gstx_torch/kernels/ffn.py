@@ -1,0 +1,160 @@
+"""Fused feed-forward and projection-LayerNorm epilogues.
+
+The port of ``gstx/kernels/ffn.py``: two hand-written CUDA kernels for
+Hopper (``csrc/ffn.cu``) and their plain PyTorch versions.
+
+  * :func:`fused_dense_ln` -- ``LayerNorm(residual + x @ W^T + b)``, the
+    attention-output projection with its residual LayerNorm (reference
+    BertSelfOutput / BertBiOutput); replaces ``_dense_ln_pallas``
+    (``gstx/kernels/ffn.py:254``).
+  * :func:`fused_ffn` -- ``LayerNorm(x + gelu(x @ W1^T + b1) @ W2^T + b2)``
+    with the [M, F] hidden kept on chip (reference BertIntermediate +
+    BertOutput, exact-erf GELU); replaces ``_ffn_pallas``
+    (``gstx/kernels/ffn.py:198``).
+
+Weights are in ``nn.Linear`` layout ([out, in]).  Numerics: products
+accumulate in f32; bias, residual, GELU and LayerNorm (eps inside the rsqrt)
+run in f32; the FFN hidden is rounded to the activation dtype before the
+second product, as the Pallas kernel does (``ffn.py:224``); the output has
+the activation dtype.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  There is no fallback from the kernel to the plain version.  Each
+wrapper counts its kernel launches in :data:`launches`.  This serving slice
+has no backward: a CUDA call that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gstx_torch.kernels import build
+
+# kernel launches per wrapper since the last reset_launches()
+launches = {"fused_dense_ln": 0, "fused_ffn": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _layer_norm(y, gamma, beta, eps):
+    mean = y.mean(-1, keepdim=True)
+    var = (y - mean).square().mean(-1, keepdim=True)
+    return (y - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def _gelu_erf(x):
+    return x * 0.5 * (1.0 + torch.erf(x * (2.0 ** -0.5)))
+
+
+def dense_ln_plain(x, weight, bias, residual, gamma, beta, eps=1e-12):
+    """Plain version of :func:`fused_dense_ln` (the Pallas kernel body,
+    ``gstx/kernels/ffn.py:275-281``)."""
+    y = x.float() @ weight.float().t()
+    y = y + bias.float() + residual.float()
+    return _layer_norm(y, gamma.float(), beta.float(),
+                       eps).to(residual.dtype)
+
+
+def ffn_plain(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
+    """Plain version of :func:`fused_ffn` (the Pallas kernel body,
+    ``gstx/kernels/ffn.py:218-230``), including the rounding of the hidden
+    to x's dtype before the second product."""
+    xf = x.float()
+    h = _gelu_erf(xf @ w1.float().t() + b1.float()).to(x.dtype)
+    y = h.float() @ w2.float().t() + b2.float() + xf
+    return _layer_norm(y, gamma.float(), beta.float(), eps).to(x.dtype)
+
+
+def _check_cuda(name, dev, bf16=(), f32=()):
+    """Validate what the kernel takes; raise on anything else."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in bf16 + f32):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
+                           "call it under torch.no_grad()")
+    for t, dtype in [(t, torch.bfloat16) for t in bf16] + \
+            [(t, torch.float32) for t in f32]:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        # tensor-core fragment loads need 256-bit aligned bases
+        if dtype == torch.bfloat16 and t.data_ptr() % 32:
+            raise ValueError(f"{name}: bf16 tensors must be 32-byte aligned")
+
+
+def _check_width(name, d, k, k_max):
+    # a CTA keeps whole output rows as 8 warps x NT 16-column tiles
+    # (D = 128 * NT, NT <= 8); the FFN walks F in 128-column chunks and
+    # dense_ln stages a [32, K] x block in shared memory beside the rows
+    if d % 128 or not 0 < d <= 1024 or k % 128 or not 0 < k <= k_max:
+        raise ValueError(f"{name}: needs D % 128 == 0, D <= 1024, inner "
+                         f"width % 128 == 0 and <= {k_max}; got D={d}, "
+                         f"inner={k}")
+
+
+def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
+    """``LayerNorm(residual + x @ weight^T + bias)``.
+
+    x: [..., Din]; weight: [D, Din]; bias, gamma, beta: [D];
+    residual: [..., D].  On CUDA: x, weight, residual bf16; bias, gamma,
+    beta f32.  Returns residual's dtype and shape."""
+    if x.device.type == "cpu":
+        return dense_ln_plain(x, weight, bias, residual, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dense_ln: unsupported device {x.device}")
+    d, din = weight.shape
+    if x.shape[-1] != din or residual.shape[-1] != d or \
+            x.shape[:-1] != residual.shape[:-1] or \
+            tuple(bias.shape) != (d,) or tuple(gamma.shape) != (d,) or \
+            tuple(beta.shape) != (d,):
+        raise ValueError("fused_dense_ln: shape mismatch")
+    _check_width("fused_dense_ln", d, din, 1024)
+    _check_cuda("fused_dense_ln", x.device, bf16=(x, weight, residual),
+                f32=(bias, gamma, beta))
+    out = torch.empty_like(residual)
+    m = residual.numel() // d
+    if m:
+        lib = build.library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        build.check(lib.gstx_dense_ln(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            residual.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), m, din, d, float(eps), stream),
+            "fused_dense_ln")
+        launches["fused_dense_ln"] += 1
+    return out
+
+
+def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
+    """``LayerNorm(x + gelu(x @ w1^T + b1) @ w2^T + b2)``.
+
+    x: [..., D]; w1: [F, D]; b1: [F]; w2: [D, F]; b2, gamma, beta: [D].
+    On CUDA: x, w1, w2 bf16; b1, b2, gamma, beta f32.  Returns x's dtype
+    and shape."""
+    if x.device.type == "cpu":
+        return ffn_plain(x, w1, b1, w2, b2, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ffn: unsupported device {x.device}")
+    f, d = w1.shape
+    if x.shape[-1] != d or tuple(w2.shape) != (d, f) or \
+            tuple(b1.shape) != (f,) or tuple(b2.shape) != (d,) or \
+            tuple(gamma.shape) != (d,) or tuple(beta.shape) != (d,):
+        raise ValueError("fused_ffn: shape mismatch")
+    _check_width("fused_ffn", d, f, 1 << 30)
+    _check_cuda("fused_ffn", x.device, bf16=(x, w1, w2),
+                f32=(b1, b2, gamma, beta))
+    out = torch.empty_like(x)
+    m = x.numel() // d
+    if m:
+        lib = build.library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        build.check(lib.gstx_ffn(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            m, d, f, float(eps), stream), "fused_ffn")
+        launches["fused_ffn"] += 1
+    return out

@@ -1,0 +1,192 @@
+"""Causal BERT decoder with cross-attention and a KV cache (port of
+``gstx/models/decoder.py``, lines 90-358).
+
+  * teacher-forced path: full-sequence causal self-attention and
+    cross-attention over the fused memory;
+  * decode path: the memory's cross-attention K/V are computed once per
+    utterance (:meth:`GSTDecoderModel.precompute_memory`) and self-attention
+    K/V accumulate in a fixed-shape cache, so each step is O(1) matmuls.
+
+The layers are reference HF BertLayer with crossattention; their parameters
+sit under ``decoder.decoder.bert.encoder.layer`` in the full model.  The
+decoder's FFN and projections are plain ops, as in the JAX package (no
+fused kernel runs here).  The int8 cross-attention memory comes with the
+decode-attention kernel in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gstx_torch.core.config import DecoderConfig
+from gstx_torch.models.layers import (
+    MASK_VALUE,
+    DenseLN,
+    Intermediate,
+    Projections,
+    attend,
+    causal_additive_mask,
+    linear,
+    merge_heads,
+    split_heads,
+)
+
+Cache = Dict[str, torch.Tensor]
+
+
+class _Attention(nn.Module):
+    """Parameters of one HF BertAttention (``self.{query,key,value}``,
+    ``output.{dense,LayerNorm}``); the decoder layer runs them unfused."""
+
+    def __init__(self, d: int, eps: float):
+        super().__init__()
+        self.self = Projections(d, d)
+        self.output = DenseLN(d, d, eps)
+
+
+def _project_ln(ctx, out: DenseLN, residual):
+    return out.LayerNorm(linear(ctx, out.dense) + residual)
+
+
+class DecoderLayer(nn.Module):
+    """Causal self-attention + cross-attention + FFN, post-LN residuals."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.num_heads = cfg.num_attention_heads
+        self.attention = _Attention(d, eps)
+        self.crossattention = _Attention(d, eps)
+        self.intermediate = Intermediate(d, cfg.intermediate_size)
+        self.output = DenseLN(cfg.intermediate_size, d, eps)
+
+    def memory_kv(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K/V of a fixed encoder memory."""
+        s = self.crossattention.self
+        h = self.num_heads
+        return (split_heads(linear(memory, s.key), h),
+                split_heads(linear(memory, s.value), h))
+
+    def _self_block(self, x, q, k, v, mask):
+        ctx = attend(q, k, v, mask)
+        return _project_ln(merge_heads(ctx), self.attention.output, x)
+
+    def _cross_block(self, x, mem, mem_mask):
+        mem_k, mem_v = mem
+        q = split_heads(linear(x, self.crossattention.self.query),
+                        self.num_heads)
+        ctx = attend(q, mem_k, mem_v, mem_mask)
+        return _project_ln(merge_heads(ctx), self.crossattention.output, x)
+
+    def _ffn_block(self, x):
+        h = F.gelu(linear(x, self.intermediate.dense))  # exact erf
+        return self.output.LayerNorm(linear(h, self.output.dense) + x)
+
+    def forward(self, x, self_mask, memory, mem_mask):
+        return self.forward_with_memory_kv(x, self_mask,
+                                           self.memory_kv(memory), mem_mask)
+
+    def forward_with_memory_kv(self, x, self_mask, mem, mem_mask):
+        """Full-sequence forward with precomputed cross-attention K/V."""
+        q, k, v = (split_heads(t, self.num_heads)
+                   for t in self.attention.self(x))
+        x = self._self_block(x, q, k, v, self_mask)
+        x = self._cross_block(x, mem, mem_mask)
+        return self._ffn_block(x)
+
+    def step(self, x, pos: int, cache: Cache, mem, mem_mask):
+        """One KV-cached decode step for x [B, 1, D] at position ``pos``.
+        JAX returns a new cache (``dynamic_update_slice``); here the cache
+        is written in place, which saves a copy of it per step."""
+        q, k, v = (split_heads(t, self.num_heads)
+                   for t in self.attention.self(x))
+        cache["k"][:, :, pos] = k[:, :, 0]
+        cache["v"][:, :, pos] = v[:, :, 0]
+        # valid cache slots are [0, pos]; mask the rest
+        slot = torch.arange(cache["k"].shape[2], device=x.device)
+        smask = torch.where(slot <= pos, 0.0, MASK_VALUE).to(x.dtype)
+        x = self._self_block(x, q, cache["k"], cache["v"], smask)
+        x = self._cross_block(x, mem, mem_mask)
+        return self._ffn_block(x)
+
+
+class _DecoderStack(nn.Module):
+    """Holds the layer list under the reference name ``encoder.layer``."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(DecoderLayer(cfg)
+                                   for _ in range(cfg.num_hidden_layers))
+
+
+class LMHead(nn.Module):
+    """Reference BertGenerationOnlyLMHead: ``decoder`` projection whose bias
+    is also registered as ``bias`` (one tensor, two names)."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.bias = self.decoder.bias
+
+
+class GSTDecoderModel(nn.Module):
+    """Decoder stack (``bert``) + LM head.  The input embeddings are the
+    encoder's DialogEmbeddings module, passed in and registered as
+    ``bert.embeddings`` (tied, as the reference's module swap makes them).
+    The LM projection is independent of the embedding table: trained
+    reference checkpoints diverge there."""
+
+    def __init__(self, cfg: DecoderConfig, embeddings: nn.Module):
+        super().__init__()
+        self.config = cfg
+        self.bert = nn.Module()
+        self.bert.embeddings = embeddings
+        self.bert.encoder = _DecoderStack(cfg)
+        self.lm_head = LMHead(cfg)
+
+    @property
+    def layers(self):
+        return self.bert.encoder.layer
+
+    def lm_logits(self, hidden):
+        """hidden @ lm_weight^T + bias as float32 logits.  JAX keeps them f32
+        through ``preferred_element_type`` (``decoder.py:285-295``); a bf16
+        matmul would round them to bf16 and create ties that change top-k
+        sampling, so the operands are upcast.  (bf16 operands are exact in
+        f32, so the products equal the JAX bf16 path's.)"""
+        w = self.lm_head.decoder.weight
+        return F.linear(hidden.float(), w.float()) + self.lm_head.bias.float()
+
+    def forward(self, x, attention_mask: Optional[torch.Tensor], memory,
+                memory_mask: Optional[torch.Tensor]):
+        if attention_mask is None:
+            attention_mask = torch.ones(x.shape[:2], dtype=torch.long,
+                                        device=x.device)
+        self_mask = causal_additive_mask(attention_mask, x.dtype)
+        for layer in self.layers:
+            x = layer(x, self_mask, memory, memory_mask)
+        return x
+
+    def forward_cached(self, x, attention_mask: Optional[torch.Tensor],
+                       memory_kv, memory_mask: Optional[torch.Tensor]):
+        if attention_mask is None:
+            attention_mask = torch.ones(x.shape[:2], dtype=torch.long,
+                                        device=x.device)
+        self_mask = causal_additive_mask(attention_mask, x.dtype)
+        for layer, mem in zip(self.layers, memory_kv):
+            x = layer.forward_with_memory_kv(x, self_mask, mem, memory_mask)
+        return x
+
+    def precompute_memory(self, memory):
+        """Per-layer cross K/V for a fixed memory, once per utterance."""
+        return [layer.memory_kv(memory) for layer in self.layers]
+
+    def step(self, x, pos: int, caches: List[Cache], memory_kv,
+             memory_mask: Optional[torch.Tensor]):
+        for layer, cache, mem in zip(self.layers, caches, memory_kv):
+            x = layer.step(x, pos, cache, mem, memory_mask)
+        return x

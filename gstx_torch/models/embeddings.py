@@ -1,0 +1,78 @@
+"""Dialog text embeddings and image-region embeddings (port of
+``gstx/models/embeddings.py``).
+
+DialogEmbeddings is reference BertEmbeddingsDialog: word + learned position
++ segment embeddings, where segment ids >= type_vocab_size index a 10-slot
+extension table.  ``sep_embeddings`` is checkpoint-present but unused in
+the forward pass; it is kept as a parameter so reference checkpoints load
+strictly.  ImageEmbeddings is reference BertImageEmbeddings: region
+features and 5-d box geometry each projected to v_hidden and summed under
+LayerNorm.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from gstx_torch.core.config import EncoderConfig
+from gstx_torch.models.layers import LayerNorm, linear
+
+
+class DialogEmbeddings(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.type_vocab_size = cfg.type_vocab_size
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                h)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.token_type_embeddings_extension = nn.Embedding(
+            cfg.type_vocab_extension, h)
+        self.sep_embeddings = nn.Embedding(cfg.sep_vocab_size, h)
+        self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activation dtype: that of the (precast) embedding tables."""
+        return self.word_embeddings.weight.dtype
+
+    def forward(self, input_ids, token_type_ids: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None):
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        if position_ids is None:
+            position_ids = torch.arange(
+                input_ids.shape[-1], device=input_ids.device).expand_as(
+                    input_ids)
+        words = self.word_embeddings(input_ids)
+        pos = self.position_embeddings(position_ids)
+        # segment ids < type_vocab_size use the base table, >= use the
+        # extension table shifted by type_vocab_size
+        tv = self.type_vocab_size
+        is_ext = token_type_ids >= tv
+        base_ids = torch.where(is_ext, 0, token_type_ids)
+        ext_ids = torch.where(is_ext, token_type_ids - tv, 0)
+        seg = torch.where(is_ext[..., None],
+                          self.token_type_embeddings_extension(ext_ids),
+                          self.token_type_embeddings(base_ids))
+        return self.LayerNorm((words + pos + seg).to(self.dtype))
+
+
+class ImageEmbeddings(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.image_embeddings = nn.Linear(cfg.v_feature_size,
+                                          cfg.v_hidden_size)
+        self.image_location_embeddings = nn.Linear(cfg.v_loc_size,
+                                                   cfg.v_hidden_size)
+        self.LayerNorm = LayerNorm(cfg.v_hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, features, locations):
+        dtype = self.image_embeddings.weight.dtype
+        img = linear(features.to(dtype), self.image_embeddings)
+        loc = linear(locations.to(dtype), self.image_location_embeddings)
+        return self.LayerNorm(img + loc)

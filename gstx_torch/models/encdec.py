@@ -1,0 +1,210 @@
+"""Top-level GST visual-dialog model: two-stream encoder + V+L fusion +
+cross-attention decoder (port of ``gstx/models/encdec.py``, lines 33-254).
+
+Parameter layout is the reference EncoderDecoderModel's:
+``encoder.bert_pretrained.{bert,cls}``, ``vlfusion.{fc_l,fc_v}`` and
+``decoder.decoder.{bert,lm_head}``.  Tying: encoder word embeddings ==
+decoder input embeddings (one module) == MLM-head projection; the decoder LM
+head has its own projection weight.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gstx_torch.core.config import DecoderConfig, EncoderConfig
+from gstx_torch.core.device import resolve_device
+from gstx_torch.models.decoder import GSTDecoderModel
+from gstx_torch.models.encoder import GSTEncoderModel
+from gstx_torch.models.heads import PreTrainingHeads
+from gstx_torch.models.layers import (LayerNorm, additive_mask,
+                                      init_weights_, linear)
+
+
+class _BertPretrained(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.bert = GSTEncoderModel(cfg)
+        self.cls = PreTrainingHeads(cfg, self.bert.embeddings.word_embeddings)
+
+
+class GSTVisualDialog(nn.Module):
+    """``GSTVisualDialog(enc_cfg, dec_cfg, device="cuda", seed=0)`` builds
+    the model on ``device`` with weights from a seeded ``torch.Generator``
+    (see :func:`gstx_torch.models.layers.init_weights_`); load trained
+    weights with ``load_state_dict`` afterwards."""
+
+    def __init__(self, enc_config: EncoderConfig, dec_config: DecoderConfig,
+                 device="cuda", seed: int = 0):
+        super().__init__()
+        self.enc_config, self.dec_config = enc_config, dec_config
+        dev = resolve_device(device)
+        with dev:
+            self.encoder = nn.Module()
+            self.encoder.bert_pretrained = _BertPretrained(enc_config)
+            self.vlfusion = nn.Module()
+            self.vlfusion.fc_l = nn.Linear(enc_config.hidden_size,
+                                           enc_config.hidden_size)
+            self.vlfusion.fc_v = nn.Linear(enc_config.v_hidden_size,
+                                           enc_config.hidden_size)
+            self.decoder = nn.Module()
+            self.decoder.decoder = GSTDecoderModel(dec_config,
+                                                   self.bert.embeddings)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        init_weights_(self, gen, enc_config.initializer_range)
+        # the decoder's LM projection is a table, initialised as one
+        with torch.no_grad():
+            self.dec.lm_head.decoder.weight.normal_(
+                0.0, dec_config.initializer_range, generator=gen)
+
+    @property
+    def bert(self) -> GSTEncoderModel:
+        return self.encoder.bert_pretrained.bert
+
+    @property
+    def dec(self) -> GSTDecoderModel:
+        return self.decoder.decoder
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Activation dtype (that of the embedding tables)."""
+        return self.bert.embeddings.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.bert.embeddings.word_embeddings.weight.device
+
+    # ------------------------------------------------------------------ #
+    # encoder paths
+    # ------------------------------------------------------------------ #
+
+    def encode(self, input_ids, image_feat, image_loc, token_type_ids=None,
+               attention_mask=None, image_attention_mask=None,
+               pooled: bool = True):
+        return self.bert(input_ids, image_feat, image_loc,
+                         token_type_ids=token_type_ids,
+                         attention_mask=attention_mask,
+                         image_attention_mask=image_attention_mask,
+                         pooled=pooled)
+
+    def pretrain_scores(self, input_ids, image_feat, image_loc,
+                        token_type_ids=None, attention_mask=None,
+                        image_attention_mask=None):
+        """enc_only path: (prediction_t, prediction_v, seq_relationship)."""
+        outs = self.encode(input_ids, image_feat, image_loc, token_type_ids,
+                           attention_mask, image_attention_mask)
+        return self.encoder.bert_pretrained.cls(*outs)
+
+    # ------------------------------------------------------------------ #
+    # fusion + decoder paths
+    # ------------------------------------------------------------------ #
+
+    def fuse(self, hidden_t, hidden_v, attention_mask, image_attention_mask):
+        """VLFusion: project both streams to the text width and concatenate
+        [visual; text] into the memory."""
+        memory = torch.cat([linear(hidden_v, self.vlfusion.fc_v),
+                            linear(hidden_t, self.vlfusion.fc_l)], dim=1)
+        memory_mask = torch.cat([image_attention_mask.float(),
+                                 attention_mask.float()], dim=1)
+        return memory, memory_mask
+
+    def _embed_dec(self, dec_input_ids, positions=None):
+        # the decoder reuses the dialog embeddings with segment 0
+        return self.bert.embeddings(
+            dec_input_ids, token_type_ids=torch.zeros_like(dec_input_ids),
+            position_ids=positions)
+
+    def decode_logits(self, dec_input_ids, dec_attention_mask, memory,
+                      memory_mask):
+        """Teacher-forced decoder pass -> [B, L, vocab] float32 logits."""
+        x = self._embed_dec(dec_input_ids)
+        mem_add = additive_mask(memory_mask, self.dtype)
+        h = self.dec(x, dec_attention_mask, memory, mem_add)
+        return self.dec.lm_logits(h)
+
+    def decode_logits_cached(self, dec_input_ids, dec_attention_mask,
+                             memory_kv, memory_add_mask):
+        """Teacher-forced decoder pass over precomputed memory K/V."""
+        x = self._embed_dec(dec_input_ids)
+        h = self.dec.forward_cached(x, dec_attention_mask, memory_kv,
+                                    memory_add_mask)
+        return self.dec.lm_logits(h)
+
+    def score(self, input_ids, image_feat, image_loc, token_type_ids,
+              attention_mask, image_attention_mask, dec_input_ids,
+              dec_attention_mask):
+        """encode -> fuse -> teacher-forced decode."""
+        hidden_t, hidden_v, _, _ = self.encode(
+            input_ids, image_feat, image_loc, token_type_ids,
+            attention_mask, image_attention_mask, pooled=False)
+        memory, memory_mask = self.fuse(hidden_t, hidden_v, attention_mask,
+                                        image_attention_mask)
+        return self.decode_logits(dec_input_ids, dec_attention_mask, memory,
+                                  memory_mask)
+
+    # ------------------------------------------------------------------ #
+    # KV-cached decode
+    # ------------------------------------------------------------------ #
+
+    def decode_prepare(self, input_ids, image_feat, image_loc, token_type_ids,
+                       attention_mask, image_attention_mask):
+        """Run the encoder once and precompute the decoder's cross-attention
+        K/V over the fused memory.  Returns (memory_kv, memory_add_mask)."""
+        hidden_t, hidden_v, _, _ = self.encode(
+            input_ids, image_feat, image_loc, token_type_ids,
+            attention_mask, image_attention_mask, pooled=False)
+        memory, memory_mask = self.fuse(hidden_t, hidden_v, attention_mask,
+                                        image_attention_mask)
+        return (self.dec.precompute_memory(memory),
+                additive_mask(memory_mask, self.dtype))
+
+    def decode_step(self, token_ids, pos: int, caches, memory_kv,
+                    memory_add_mask):
+        """One decode step: token_ids [B, 1] at absolute position ``pos``.
+        Returns [B, vocab] float32 logits; ``caches`` are updated in place."""
+        positions = torch.full_like(token_ids, pos)
+        x = self._embed_dec(token_ids, positions=positions)
+        h = self.dec.step(x, pos, caches, memory_kv, memory_add_mask)
+        return self.dec.lm_logits(h)[:, 0, :]
+
+
+def precast_(model: GSTVisualDialog, dtype=torch.bfloat16) -> GSTVisualDialog:
+    """Cast the weights to the activation dtype once, in place (the engine's
+    bf16 precast, ``gstx/decode/dialog_engine.py:230-263``).  LayerNorm
+    parameters and the LM-head bias stay f32: they are consumed in f32.
+    Parameter objects are kept (``p.data`` is replaced), so tying holds."""
+    keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
+            for p in m.parameters()}
+    keep.add(id(model.dec.lm_head.bias))
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) not in keep and p.dtype != dtype:
+                p.data = p.data.to(dtype)
+    return model
+
+
+# ---------------------------------------------------------------------- #
+# loss helpers
+# ---------------------------------------------------------------------- #
+
+
+def derive_labels_and_inputs(dec_input_ids, eos_id: int, pad_id: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Labels are the inputs shifted left; inputs map EOS -> PAD
+    (reference visual_dialog_decoder.py:53-57)."""
+    labels = torch.zeros_like(dec_input_ids)
+    labels[:, :-1] = dec_input_ids[:, 1:]
+    inputs = torch.where(dec_input_ids == eos_id, pad_id, dec_input_ids)
+    return labels, inputs
+
+
+def teacher_forced_nll(logits, labels, pad_id: int = 0) -> torch.Tensor:
+    """Per-position CE with ignore_index=pad; [B, L] float32, 0 at ignored
+    positions."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    return torch.where(labels == pad_id, 0.0, nll)

@@ -1,0 +1,227 @@
+"""The port's sampling ops, sampler and dialog engine against the JAX
+package's, f32 on the CPU.  Filters and n-gram blocking agree exactly;
+greedy decoding agrees token for token; sampled decoding agrees in
+distribution (torch's generator is not JAX's threefry)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fixtures import init_tiny_params, make_gen_batch, tiny_enc_dec_configs
+from gstx.decode import sampler as jsampler
+from gstx.decode.dialog_engine import make_dialog_engine as j_make_engine
+from gstx.models.encdec import GSTVisualDialog as JGST
+from gstx.ops import sampling as jsampling
+from gstx_torch.core import config as tcfg
+from gstx_torch.core.checkpoint import state_dict_from_jax
+from gstx_torch.decode import sampler as tsampler
+from gstx_torch.decode.dialog_engine import (DialogState, append_utterance,
+                                             make_dialog_engine)
+from gstx_torch.models.encdec import GSTVisualDialog
+from gstx_torch.ops import sampling as tsampling
+
+PPL_TOL = 1e-4  # composed model, f32 on the CPU
+
+
+def _logits(seed, b=6, v=300):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, v).astype(np.float32)
+    x[0, 10:14] = x[0].max() + 1.0  # a tie straddling the k-th value
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 3, 7, 20])
+def test_top_k_filter_exact(k):
+    x = _logits(0)
+    want = np.asarray(jsampling.top_k_filter(jnp.asarray(x), k))
+    got = tsampling.top_k_filter(torch.from_numpy(x), k).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [0.3, 0.9])
+def test_top_p_filter_exact(p):
+    x = _logits(1)
+    want = np.asarray(jsampling.top_p_filter(jnp.asarray(x), p))
+    got = tsampling.top_p_filter(torch.from_numpy(x), p).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cur_len", [2, 3, 5, 7])
+def test_ngram_block_exact(cur_len):
+    rng = np.random.RandomState(2)
+    b, s, t = 4, 40, 8
+    src = rng.randint(104, 112, size=(b, s)).astype(np.int32)
+    src[1, 5] = 102  # a special token inside some windows
+    dec = rng.randint(104, 112, size=(b, t)).astype(np.int32)
+    dec[:, 0] = 101
+    dec[0, 1:4] = src[0, 7:10]  # a guaranteed match
+    logits = rng.randn(b, 120).astype(np.float32)
+    want = np.asarray(jsampling.ngram_block(
+        jnp.asarray(logits), jnp.asarray(src), jnp.asarray(dec), cur_len, 4))
+    got = tsampling.ngram_block(
+        torch.from_numpy(logits), torch.from_numpy(src).long(),
+        torch.from_numpy(dec).long(), cur_len, 4).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pad_after_eos_exact():
+    seq = np.array([[5, 102, 7, 102, 9], [102, 1, 2, 3, 4], [1, 2, 3, 4, 5]],
+                   np.int32)
+    want = np.asarray(jsampling.pad_after_eos(jnp.asarray(seq), 102))
+    got = tsampling.pad_after_eos(torch.from_numpy(seq).long(), 102).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sampled_frequencies_match_softmax_over_top_k(fused):
+    """>= 20k draws from fixed logits: total-variation distance to the
+    softmax over the top k below 0.02 (its expected value at 20k draws is
+    ~0.008), and no draw outside the top k."""
+    n, k = 20000, 7
+    rng = np.random.RandomState(3)
+    logits = torch.from_numpy(rng.randn(50).astype(np.float32) * 2.0)
+    gen = torch.Generator().manual_seed(0)
+    batch = logits.expand(n, -1).contiguous()
+    if fused:
+        draws = tsampling.sample_token_topk(gen, batch, k)
+    else:
+        draws = tsampling.sample_token(gen, tsampling.top_k_filter(batch, k))
+    top = torch.topk(logits, k).indices
+    want = torch.zeros(50)
+    want[top] = torch.softmax(logits[top], -1)
+    freq = torch.bincount(draws, minlength=50).float() / n
+    assert float(freq[want == 0].sum()) == 0.0
+    assert 0.5 * float((freq - want).abs().sum()) < 0.02
+
+
+def _fixed_step_tables(v=40, t=8, seed=4):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(v, v).astype(np.float32) * 3,
+            rng.randn(t, v).astype(np.float32))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_greedy_sample_sequence_token_identical(fused):
+    table, pos_bias = _fixed_step_tables()
+    settings_kw = dict(max_steps=7, temperature=0.7, top_k=1,
+                       ngram_blocking_size=3, fused_sampler=fused)
+    rng = np.random.RandomState(5)
+    src = rng.randint(0, 40, size=(5, 30)).astype(np.int32)
+
+    def j_step(tok, pos, caches):
+        return (jnp.asarray(table)[tok[:, 0]]
+                + jnp.asarray(pos_bias)[pos], caches)
+
+    def t_step(tok, pos, caches):
+        return torch.from_numpy(table)[tok[:, 0]] + \
+            torch.from_numpy(pos_bias)[pos]
+
+    want = np.asarray(jsampler.sample_sequence(
+        j_step, jax.random.PRNGKey(0), 5, None,
+        jsampler.DecodeSettings(**settings_kw), ngram_source=jnp.asarray(src),
+        bos_id=1, eos_id=2))
+    got = tsampler.sample_sequence(
+        t_step, torch.Generator().manual_seed(0), 5, None,
+        tsampler.DecodeSettings(**settings_kw),
+        ngram_source=torch.from_numpy(src).long(), bos_id=1, eos_id=2,
+        device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_append_utterance_overflow_and_exact_fill():
+    ids = torch.tensor([[101, 5, 0, 0, 0], [101, 5, 6, 0, 0]])
+    state = DialogState(ids.clone(), torch.zeros_like(ids),
+                        torch.tensor([2, 3]), torch.zeros(2, dtype=torch.bool))
+    utt = torch.tensor([[7, 8, 9, 0], [7, 8, 9, 0]])
+    new, eff = append_utterance(state, utt, torch.tensor([3, 3]), segment=1,
+                                write_segments=True)
+    # row 0 fills the context exactly; row 1 overflows -> one SEP, abnormal
+    assert new.enc_input_ids.tolist() == [[101, 5, 7, 8, 9],
+                                          [101, 5, 6, 102, 0]]
+    assert new.enc_segments.tolist() == [[0, 0, 1, 1, 1], [0, 0, 0, 1, 0]]
+    assert new.enc_len.tolist() == [5, 4] and eff.tolist() == [3, 1]
+    assert new.abnormal.tolist() == [False, True]
+
+
+def _torch_configs(enc, dec):
+    return (tcfg.EncoderConfig(**dataclasses.asdict(enc)),
+            tcfg.DecoderConfig(**dataclasses.asdict(dec)))
+
+
+@pytest.fixture(scope="module")
+def engine_setup():
+    enc, dec = tiny_enc_dec_configs()
+    q_params = init_tiny_params(enc, dec, seed=0)
+    a_params = init_tiny_params(enc, dec, seed=1)
+    models = []
+    for p in (q_params, a_params):
+        m = GSTVisualDialog(*_torch_configs(enc, dec), device="cpu")
+        m.load_state_dict(state_dict_from_jax(jax.device_get(p)),
+                          strict=True)
+        models.append(m)
+    return enc, dec, q_params, a_params, models
+
+
+# seq_len 32: every greedy utterance runs its 5 steps, so the context
+# overflows in round 2 and `abnormal` is exercised
+@pytest.mark.parametrize("buckets", [(), (24,)])
+def test_greedy_engine_matches_jax_engine(engine_setup, buckets):
+    enc, dec, q_params, a_params, (q_model, a_model) = engine_setup
+    batch = make_gen_batch(enc, b=4, seq_len=32, regions=7, cap_len=14)
+    kw = dict(num_rounds=3, context_buckets=buckets)
+    greedy_q = dict(max_steps=5, top_k=1, ngram_blocking_size=4)
+    greedy_a = dict(max_steps=5, top_k=1, ngram_blocking_size=0)
+    j_engine = j_make_engine(
+        JGST(enc, dec), dec,
+        q_settings=jsampler.DecodeSettings(**greedy_q),
+        a_settings=jsampler.DecodeSettings(**greedy_a), **kw)
+    want = j_engine(q_params, a_params,
+                    {k: jnp.asarray(v) for k, v in batch.items()},
+                    jax.random.PRNGKey(11))
+    t_engine = make_dialog_engine(
+        q_settings=tsampler.DecodeSettings(**greedy_q),
+        a_settings=tsampler.DecodeSettings(**greedy_a), device="cpu", **kw)
+    got = t_engine(q_model, a_model, batch, torch.Generator().manual_seed(11))
+
+    np.testing.assert_array_equal(got.questions.numpy(),
+                                  np.asarray(want.questions))
+    np.testing.assert_array_equal(got.answers.numpy(),
+                                  np.asarray(want.answers))
+    np.testing.assert_array_equal(got.abnormal.numpy(),
+                                  np.asarray(want.abnormal))
+    assert got.abnormal.any()
+    np.testing.assert_allclose(got.answer_ppl.numpy(),
+                               np.asarray(want.answer_ppl),
+                               rtol=PPL_TOL, atol=PPL_TOL)
+    np.testing.assert_array_equal(
+        got.final_state.enc_input_ids.numpy(),
+        np.asarray(want.final_state.enc_input_ids))
+    np.testing.assert_array_equal(got.final_state.enc_len.numpy(),
+                                  np.asarray(want.final_state.enc_len))
+
+
+def test_dynamic_buckets_identical_to_static(engine_setup):
+    enc, dec, _, _, (q_model, a_model) = engine_setup
+    batch = make_gen_batch(enc, b=3, seq_len=48, regions=7, cap_len=10)
+    settings = dict(q_settings=tsampler.DecodeSettings(
+        max_steps=4, top_k=1, ngram_blocking_size=4),
+        a_settings=tsampler.DecodeSettings(max_steps=4, top_k=1,
+                                           ngram_blocking_size=0),
+        num_rounds=3, device="cpu")
+    outs = [make_dialog_engine(context_buckets=b, dynamic_buckets=d,
+                               **settings)(q_model, a_model, batch,
+                                           torch.Generator().manual_seed(0))
+            for b, d in (((), False), ((20, 30), True))]
+    for a, b in zip(outs[0][:4], outs[1][:4]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5)
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError):
+        make_dialog_engine(device="cuda")
