@@ -3,14 +3,20 @@
 
   phase 1  the card: its name and power limit (nvidia-smi), and the build of
            the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a);
-  phase 2  each kernel against its plain PyTorch version, bf16, at every
-           shape the main path gives it plus a ragged M: elementwise
-           |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps),
-           and times (CUDA events, median of 20 calls after 3 warm-up
-           calls) of the kernel, the plain version and one PyTorch
-           composite of the same function, beside the least time the card
-           could take (bf16 tensor-core FLOPs at 989 TFLOP/s or compulsory
-           bytes at 3.35 TB/s, whichever is larger);
+  phase 2  each kernel against its plain PyTorch version at every shape
+           the main paths give it plus a ragged one: bf16 fused_dense_ln,
+           fused_ffn, fused_attention and fused_attention_batch within
+           |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
+           quant_decode_attention (f32 out of exact int8 operands) within
+           5e-3 + 1e-4 * |plain|.  Device times (CUDA events around 20
+           back-to-back calls queued behind a device sleep, median of 5,
+           after 3 warm-up calls) of the kernel, the plain version and one
+           PyTorch call of the same function (for the attention kernels
+           scaled_dot_product_attention in bf16; for the decode kernel the
+           same call over K/V already converted to bf16, the conversion not
+           timed: the bf16-memory path's cost per call), beside the least
+           time the card could take (bf16 tensor-core FLOPs at 989 TFLOP/s
+           or compulsory bytes at 3.35 TB/s, whichever is larger);
   phase 3  the dialog engine at full width (12/6/6-layer encoder, 12-layer
            decoder, bf16, random weights from a seed) on bench.py's
            workload: batch 96, context 256, 37 regions, caption-only
@@ -18,10 +24,26 @@
            4, answers without n-gram blocking, 18 steps.  A small input
            first checks the bf16 kernel path against the f32 unfused model;
            then one warm-up batch, then the timed batches, with every
-           kernel's launch count set to 0 just before and read just after;
+           kernel's launch count set to 0 just before and read just after
+           (the attention and decode kernels must stay at 0: their switches
+           are off, as in the reference's default);
   phase 4  where the time goes: one round's pieces (encoder, decode,
            answer scoring) and one profiled round (device busy share, top
-           kernels).
+           kernels), the profiled round at the end of the run;
+  phase 5  the engine with every optional kernel on, as the reference's
+           `bench.py -quant 1 -decode_kernel 1` with its attention switch
+           on: int8 decode memory, quant_decode_attention in every decode
+           step, fused_attention in every attention of 8 or more query rows.
+           The same model and workload as phase 3; a small input first
+           checks the int8 decode step against the f32 unfused model
+           (max |dlogit| / max |logit| < 0.05, the JAX package's int8
+           criterion) and the dequantized memory within phase 3's limit;
+           then warm-up, timed batches with counted launches, phase 4's
+           breakdown for this configuration, and one batch of each
+           configuration in turns (default, all kernels, all kernels,
+           default), since the host's speed drifts within a run.  The two
+           profiled rounds come last: engine timings taken after a profiled
+           round ran 26-50% slower for the rest of the run.
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
@@ -47,6 +69,14 @@ ABS_TOL, REL_TOL = 1e-2, 1.6e-2
 # error of the decoder memory K/V and of the logits (bf16 rounding through
 # ~20 sequential layers)
 MODEL_REL_TOL = 5e-2
+# int8 decode step vs the f32 unfused model: max |dlogit| / max |logit|
+# (tests/test_quantized_memory.py:108)
+INT8_LOGIT_TOL = 5e-2
+# quant_decode_attention: f32 out of exact int8 operands, summation order
+DECODE_ABS_TOL, DECODE_REL_TOL = 5e-3, 1e-4
+# ~10 ms of device sleep at the H100's clock: more than the host needs to
+# enqueue time_ms's calls
+SLEEP_CYCLES = 20_000_000
 ROUNDS = 10         # bench.py's dialog length
 TIMED_BATCHES = 2   # after one warm-up batch
 
@@ -63,20 +93,28 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, repeats=5):
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls, median over ``repeats``.  A device-side sleep queued first lets
+    the host enqueue all the calls before the first one runs, so a call
+    shorter than its Python wrapper's host time is timed on the device and
+    not on the host."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -86,7 +124,7 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-def kernel_phase(torch, kffn):
+def kernel_phase(torch, kffn, kattn, kdecode):
     """Phase 2: returns the per-kernel JSON entries."""
     import torch.nn.functional as F
 
@@ -98,9 +136,9 @@ def kernel_phase(torch, kffn):
         return (torch.randn(*shape, generator=gen, device=dev) * scale
                 + shift).to(dtype)
 
-    def held(name, label, k, p):
+    def held(name, label, k, p, abs_tol=ABS_TOL, rel_tol=REL_TOL):
         err = (k.float() - p.float()).abs()
-        lim = ABS_TOL + REL_TOL * p.float().abs()
+        lim = abs_tol + rel_tol * p.float().abs()
         if not bool(torch.isfinite(k.float()).all()) or \
                 not bool((err <= lim).all()):
             raise AssertionError(
@@ -163,7 +201,108 @@ def kernel_phase(torch, kffn):
                          bound_ms=bms, bound_by=by, library_ms=lib))
         log(f"[phase 2] fused_ffn {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_ffn", "gstx/kernels/ffn.py:198", rows))
+    entries += attention_rows(torch, F, kattn, randn, held)
+    entries.append(decode_rows(torch, F, kdecode, gen, held))
     return entries
+
+
+def padding_mask(torch, gen, b, n, lo):
+    """[B, n] additive -10000 past each row's valid length (>= lo), the
+    first row full."""
+    dev = torch.device("cuda")
+    n_valid = torch.randint(lo, n + 1, (b,), generator=gen, device=dev)
+    n_valid[0] = n
+    valid = torch.arange(n, device=dev)[None, :] < n_valid[:, None]
+    return torch.where(valid, 0.0, -10000.0)
+
+
+def attention_rows(torch, F, kattn, randn, held):
+    """fused_attention and fused_attention_batch at the encoder's and the
+    scoring pass's shapes (B=96), Q/K/V as the heads-split views of the
+    projections the model hands them."""
+    shapes = [("text self 96x12x256->256x64", 96, 12, 256, 256, 64),
+              ("visual self 96x8x37->37x128", 96, 8, 37, 37, 128),
+              ("co t->v 96x8x256->37x128", 96, 8, 256, 37, 128),
+              ("co v->t 96x8x37->256x128", 96, 8, 37, 256, 128),
+              ("scoring self 96x12x18->18x64 causal", 96, 12, 18, 18, 64),
+              ("ragged 7x12x100->171x64", 7, 12, 100, 171, 64)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"fused_attention": [], "fused_attention_batch": []}
+    for label, b, h, lq, lk, dh in shapes:
+        def heads(n):
+            return randn(b, n, h * dh).view(b, n, h, dh).transpose(1, 2)
+        q, k, v = heads(lq), heads(lk), heads(lk)
+        mask = padding_mask(torch, gen, b, lk, max(1, lk // 4))
+        mask = mask[:, None, None, :]                    # [B, 1, 1, Lk]
+        if "causal" in label:                            # [B, 1, Lq, Lk]
+            tri = torch.ones(lq, lk, device="cuda").tril() > 0
+            mask = torch.where(tri, mask, -10000.0)
+        mask = mask.contiguous()
+        mask16 = mask.to(torch.bfloat16)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask16))
+        flops = 4 * b * h * lq * lk * dh
+        nbytes = 2 * 2 * b * h * (lq + lk) * dh + 4 * mask.numel()
+        bms, by = bound(flops, nbytes)
+        for name, fn, plain in (
+                ("fused_attention", kattn.fused_attention,
+                 kattn.attention_plain),
+                ("fused_attention_batch", kattn.fused_attention_batch,
+                 kattn.attention_batch_plain)):
+            err = held(name, label, fn(q, k, v, mask), plain(q, k, v, mask))
+            rows[name].append(dict(
+                shape=label, max_abs_err=err,
+                ms=time_ms(lambda: fn(q, k, v, mask)),
+                plain_ms=time_ms(lambda: plain(q, k, v, mask)),
+                bound_ms=bms, bound_by=by, library_ms=lib,
+                library="scaled_dot_product_attention, bf16"))
+            log(f"[phase 2] {name} {label}: " + json.dumps(rows[name][-1]))
+    return [("fused_attention", "gstx/kernels/attention.py:64",
+             rows["fused_attention"]),
+            ("fused_attention_batch", "gstx/kernels/attention.py:143",
+             rows["fused_attention_batch"])]
+
+
+def decode_rows(torch, F, kdecode, gen, held):
+    """quant_decode_attention at the decode steps' shapes: B=96, 12 heads
+    of 64, memory M = 37 regions + the context bucket, padded slots
+    masked and zero in K/V; plus a ragged B."""
+    name = "quant_decode_attention"
+    dev = torch.device("cuda")
+    rows = []
+    for b, m in ((96, 293), (96, 229), (96, 165), (7, 229)):
+        label = f"B={b} H=12 M={m} dh=64"
+        h, dh = 12, 64
+        # q with the K scale and 1/sqrt(dh) folded in, as the decoder makes
+        # it: scores of order 1
+        q = (torch.randn(b, h, 1, dh, generator=gen, device=dev) * 0.05
+             ).to(torch.bfloat16)
+        add = padding_mask(torch, gen, b, m, 38)
+        valid = (add == 0)[:, None, :, None]
+        k, v = (torch.randint(-127, 128, (b, h, m, dh), generator=gen,
+                              device=dev, dtype=torch.int8) * valid
+                for _ in range(2))
+        mask = add[:, None, None, :].to(torch.bfloat16)  # as the engine's
+        err = held(name, label, kdecode.quant_decode_attention(q, k, v, mask),
+                   kdecode.quant_decode_attention_plain(q, k, v, mask),
+                   DECODE_ABS_TOL, DECODE_REL_TOL)
+        k16, v16 = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k16, v16, attn_mask=mask, scale=1.0))
+        flops = 4 * b * h * m * dh
+        nbytes = 2 * b * h * m * dh + 2 * b * h * dh + 2 * b * m \
+            + 4 * b * h * dh
+        bms, by = bound(flops, nbytes)
+        rows.append(dict(
+            shape=label, max_abs_err=err,
+            ms=time_ms(lambda: kdecode.quant_decode_attention(q, k, v, mask)),
+            plain_ms=time_ms(lambda: kdecode.quant_decode_attention_plain(
+                q, k, v, mask)),
+            bound_ms=bms, bound_by=by, library_ms=lib,
+            library="scaled_dot_product_attention over bf16 K/V "
+                    "(conversion not timed)"))
+        log(f"[phase 2] {name} {label}: " + json.dumps(rows[-1]))
+    return (name, "gstx/kernels/decode_attn.py:60", rows)
 
 
 def make_batch(np, enc_cfg, b, s, r, cap_len=20):
@@ -186,7 +325,85 @@ def rel_err(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def engine_phase(torch, np, kffn, rounds, batches, card):
+class Counters:
+    """Every kernel wrapper's launch counter, read and reset together."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self):
+        for m in self.modules:
+            m.reset_launches()
+
+    def read(self):
+        return {k: n for m in self.modules for k, n in m.launches.items()}
+
+
+def small_inputs(torch, np, enc_cfg):
+    """B=4, S=128 encoder inputs and 12 decoder tokens for the checks
+    against the f32 unfused model."""
+    small = make_batch(np, enc_cfg, 4, 128, 37)
+    args = [torch.from_numpy(small[k]).cuda() for k in
+            ("enc_input_ids", "enc_image_feat", "enc_image_loc",
+             "enc_segments")]
+    args += [(args[0] != 0).long(), torch.from_numpy(
+        small["enc_image_mask"]).cuda()]
+    return args, torch.from_numpy(small["enc_input_ids"][:, :12]).cuda()
+
+
+def run_engine(torch, engine, model, batch, gen, counters, batches, tag):
+    """One warm-up batch, then ``batches`` timed ones with every launch
+    counter set to 0 just before and read just after."""
+    t0 = time.perf_counter()
+    engine(model, model, batch, gen)
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up batch {time.perf_counter() - t0:.2f} s")
+    counters.reset()
+    outs, walls = [], []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(engine(model, model, batch, gen))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[{tag}] timed batches: " + ", ".join(f"{w:.3f} s" for w in walls))
+    return outs, sum(walls) / batches, counters.read()
+
+
+def check_outputs(torch, outs, rounds, b, t, vocab):
+    for out in outs:
+        for x in (out.questions, out.answers):
+            if tuple(x.shape) != (rounds, b, t):
+                raise AssertionError(f"output shape {tuple(x.shape)}")
+            if int(x.min()) < 0 or int(x.max()) >= vocab:
+                raise AssertionError("token id out of range")
+        ppl = out.answer_ppl
+        if tuple(ppl.shape) != (rounds, b) or \
+                not bool(torch.isfinite(ppl).all()) or \
+                not bool((ppl > 0).all()):
+            raise AssertionError("answer_ppl not finite and positive")
+
+
+def check_launches(tag, counts, want):
+    log(f"[{tag}] launches: {counts} (expected {want})")
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name}: {n} launches expected, "
+                                 f"{counts[name]} counted")
+
+
+def report_rate(tag, outs, wall, rounds, b, t, card):
+    tokens = b * rounds * 2 * t  # bench.py's fixed accounting
+    emitted = sum(int((o.questions != 0).sum() + (o.answers != 0).sum())
+                  for o in outs) / len(outs)
+    log(f"[{tag}] engine: {tokens / wall:.2f} generated tok/s "
+        f"({rounds} rounds, batch {b}, {wall:.3f} s/batch, {tokens} tokens "
+        f"by fixed accounting, {emitted:.0f} emitted) on {card}")
+
+
+def engine_phases(torch, np, counters, rounds, batches, card):
+    """Phases 3-5 on one full-width model: returns the launch counts of the
+    default path (phase 3) and of the all-kernels path (phase 5)."""
     from gstx_torch.core.config import DecoderConfig, EncoderConfig
     from gstx_torch.decode.dialog_engine import make_dialog_engine
     from gstx_torch.decode.sampler import DecodeSettings
@@ -203,13 +420,7 @@ def engine_phase(torch, np, kffn, rounds, batches, card):
         f"({sum(p.numel() for p in ref.parameters()) / 1e6:.1f} M params)")
 
     # the bf16 kernel path against the f32 unfused model on a small input
-    small = make_batch(np, enc_cfg, 4, 128, 37)
-    args = [torch.from_numpy(small[k]).cuda() for k in
-            ("enc_input_ids", "enc_image_feat", "enc_image_loc",
-             "enc_segments")]
-    args += [(args[0] != 0).long(), torch.from_numpy(
-        small["enc_image_mask"]).cuda()]
-    dec_ids = torch.from_numpy(small["enc_input_ids"][:, :12]).cuda()
+    args, dec_ids = small_inputs(torch, np, enc_cfg)
     with torch.no_grad():
         kv16, m16 = model.decode_prepare(*args)
         kv32, m32 = ref.decode_prepare(*args)
@@ -225,76 +436,159 @@ def engine_phase(torch, np, kffn, rounds, batches, card):
         f"(limit {MODEL_REL_TOL})")
     if not kv_err <= MODEL_REL_TOL or not lg_err <= MODEL_REL_TOL:
         raise AssertionError("bf16 kernel path disagrees with f32 model")
-    del ref, kv32, kv16
-    torch.cuda.empty_cache()
+    del kv16, lg16, lg32
 
     B, S, R, T = 96, 256, 37, 18
     batch = make_batch(np, enc_cfg, B, S, R)
     settings = dict(max_steps=T, temperature=0.7, top_k=7, top_p=0.0,
                     fused_sampler=True)
-    engine = make_dialog_engine(
-        num_rounds=rounds,
-        q_settings=DecodeSettings(ngram_blocking_size=4, **settings),
-        a_settings=DecodeSettings(ngram_blocking_size=0, **settings),
-        dtype=torch.bfloat16, context_buckets=(128, 192), device="cuda")
+
+    def engine(n_rounds, **kw):
+        return make_dialog_engine(
+            num_rounds=n_rounds,
+            q_settings=DecodeSettings(ngram_blocking_size=4, **settings),
+            a_settings=DecodeSettings(ngram_blocking_size=0, **settings),
+            dtype=torch.bfloat16, context_buckets=(128, 192), device="cuda",
+            **kw)
     gen = torch.Generator(device="cuda").manual_seed(1)
-
-    t0 = time.perf_counter()
-    engine(model, model, batch, gen)
-    torch.cuda.synchronize()
-    log(f"[phase 3] warm-up batch {time.perf_counter() - t0:.2f} s")
-
-    kffn.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = [engine(model, model, batch, gen) for _ in range(batches)]
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / batches
-    counts = dict(kffn.launches)
     per_forward = (enc_cfg.num_hidden_layers + enc_cfg.v_num_hidden_layers
                    + 2 * len(enc_cfg.v_biattention_id))
-    want = per_forward * 2 * rounds * batches
-    log(f"[phase 3] launches over {batches} batches: {counts} "
-        f"(expected {want} each: {per_forward} per encoder forward, "
-        f"2 forwards per round, {rounds} rounds)")
-    for name, n in counts.items():
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches, expected {want}")
-    for out in outs:
-        for t in (out.questions, out.answers):
-            if tuple(t.shape) != (rounds, B, T):
-                raise AssertionError(f"output shape {tuple(t.shape)}")
-            if int(t.min()) < 0 or int(t.max()) >= dec_cfg.vocab_size:
-                raise AssertionError("token id out of range")
-        ppl = out.answer_ppl
-        if tuple(ppl.shape) != (rounds, B) or \
-                not bool(torch.isfinite(ppl).all()) or \
-                not bool((ppl > 0).all()):
-            raise AssertionError("answer_ppl not finite and positive")
-    tokens = B * rounds * 2 * T  # bench.py's fixed accounting
-    emitted = sum(int((o.questions != 0).sum() + (o.answers != 0).sum())
-                  for o in outs) / batches
-    log(f"[phase 3] engine: {tokens / wall:.2f} generated tok/s "
-        f"({rounds} rounds, batch {B}, {wall:.3f} s/batch, {tokens} tokens "
-        f"by fixed accounting, {emitted:.0f} emitted) on {card}")
-    breakdown(torch, model, batch, settings, DecodeSettings,
-              make_dialog_engine, card)
+    ffn_each = per_forward * 2 * rounds * batches  # 2 encoder passes a round
+
+    outs, wall, default_counts = run_engine(
+        torch, engine(rounds), model, batch, gen, counters, batches,
+        "phase 3")
+    check_launches("phase 3", default_counts, {
+        "fused_dense_ln": ffn_each, "fused_ffn": ffn_each,
+        "fused_attention": 0, "fused_attention_batch": 0,
+        "quant_decode_attention": 0})
+    check_outputs(torch, outs, rounds, B, T, dec_cfg.vocab_size)
+    report_rate("phase 3", outs, wall, rounds, B, T, card)
+    breakdown(torch, model, batch, settings, card, "phase 4", False)
+
+    counts = int8_phase(torch, model, ref, (kv32, m32), args, batch,
+                        settings, engine, gen, counters, per_forward,
+                        dec_cfg, batches, card)
+    # the profiled rounds last: see profile_round
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import decode_attn as kdecode
+
+    profile_round(torch, model, batch, settings, card, "phase 4", False)
+    kattn.enable()
+    kdecode.enable_kernel()
+    profile_round(torch, model, batch, settings, card, "phase 5", True)
+    kattn.enable(False)
+    kdecode.enable_kernel(False)
+    return default_counts, counts
+
+
+def int8_phase(torch, model, ref, ref_memory, args, batch, settings, engine,
+               gen, counters, per_forward, dec_cfg, batches, card):
+    """Phase 5: int8 decode memory with quant_decode_attention and
+    fused_attention on, at ROUNDS rounds whatever phase 3 ran."""
+    from gstx_torch.decode.sampler import init_cache
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.models.decoder import dequantize_kv, quantize_memory_kv
+
+    kv32, m32 = ref_memory
+    tok = torch.full((4, 1), 101, dtype=torch.long, device="cuda")  # CLS
+    with torch.no_grad():
+        lg32 = ref.decode_step(tok, 0, init_cache(
+            dec_cfg, 4, 2, torch.float32, "cuda"), kv32, m32)
+        kattn.enable()
+        kdecode.enable_kernel()
+        before = counters.read()
+        kv16, m16 = model.decode_prepare(*args)
+        mem8 = quantize_memory_kv(kv16, m16, torch.bfloat16)
+        lg8 = model.decode_step(tok, 0, init_cache(
+            dec_cfg, 4, 2, torch.bfloat16, "cuda"), mem8, m16)
+        after = counters.read()
+    if not (after["fused_attention"] > before["fused_attention"] and
+            after["quant_decode_attention"] > before[
+                "quant_decode_attention"]):
+        raise AssertionError("the small check did not reach kernels 3 and 5")
+    # over the valid slots: quantization zeroes the padding, whose values
+    # the -10000 mask makes free
+    valid = (m32[:, 0, 0, :] > -5000.0)[:, None, :, None]
+    kv_err = max(rel_err(a * valid, b * valid)
+                 for layer8, pair32 in zip(mem8, kv32)
+                 for a, b in zip(dequantize_kv(layer8), pair32))
+    lg_err = float((lg8 - lg32).abs().max() / lg32.abs().max())
+    log(f"[phase 5] int8 memory + kernels vs f32 unfused (B=4, S=128): "
+        f"dequantized memory K/V rel err over the valid slots "
+        f"{kv_err:.4g} (limit "
+        f"{MODEL_REL_TOL}), decode-step max|dlogit|/max|logit| "
+        f"{lg_err:.4g} (limit {INT8_LOGIT_TOL})")
+    if not kv_err <= MODEL_REL_TOL or not lg_err < INT8_LOGIT_TOL:
+        raise AssertionError("int8 kernel path disagrees with f32 model")
+    B, T = batch["enc_input_ids"].shape[0], settings["max_steps"]
+    rounds = ROUNDS
+    outs, wall, counts = run_engine(
+        torch, engine(rounds, quantize_memory=True), model, batch, gen,
+        counters, batches, "phase 5")
+    encoder_each = per_forward * 2 * rounds * batches
+    check_launches("phase 5", counts, {
+        "fused_dense_ln": encoder_each, "fused_ffn": encoder_each,
+        # every encoder attention (one per text or visual layer, two per
+        # co-attention layer: per_forward again) in both passes, and the
+        # scoring pass's self-attentions (its cross-attention takes the
+        # unfused int8 branch)
+        "fused_attention":
+            (2 * per_forward + dec_cfg.num_hidden_layers) * rounds * batches,
+        "fused_attention_batch": 0,
+        # every layer of every decode step (no decode ends early)
+        "quant_decode_attention":
+            dec_cfg.num_hidden_layers * T * 2 * rounds * batches})
+    check_outputs(torch, outs, rounds, B, T, dec_cfg.vocab_size)
+    report_rate("phase 5", outs, wall, rounds, B, T, card)
+    breakdown(torch, model, batch, settings, card, "phase 5", True)
+
+    # the two configurations in turns, one batch each: the host's speed
+    # drifts within a run, and decode is host-bound
+    engines = {"default": engine(rounds),
+               "int8+kernels": engine(rounds, quantize_memory=True)}
+    walls = {name: [] for name in engines}
+    for name in ("default", "int8+kernels", "int8+kernels", "default"):
+        kattn.enable(name != "default")
+        kdecode.enable_kernel(name != "default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[name](model, model, batch, gen)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    log("[phase 5] in turns (default, int8+kernels, int8+kernels, "
+        "default): " + "; ".join(
+            f"{name} {', '.join(f'{w:.3f}' for w in ws)} s/batch = "
+            f"{B * rounds * 2 * T * len(ws) / sum(ws):.2f} tok/s"
+            for name, ws in walls.items()) + f" on {card}")
+    kattn.enable(False)
+    kdecode.enable_kernel(False)
     return counts
 
 
-def breakdown(torch, model, batch, settings, DecodeSettings,
-              make_dialog_engine, card):
-    """Phase 4, where the time goes: one round's pieces at the full context
-    width (host clock around synchronised calls), then one round under
-    torch.profiler for the device's busy share and its top kernels."""
-    from gstx_torch.decode.sampler import init_cache, sample_sequence
+def synced(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+
+def breakdown(torch, model, batch, settings, card, tag, quantize):
+    """Where the time goes: one round's pieces at the full context width
+    (host clock around synchronised calls).  ``quantize``: the memory goes
+    to int8 after the encoder (timed with it), as the engine's
+    ``quantize_memory``."""
+    from gstx_torch.decode.sampler import (DecodeSettings, init_cache,
+                                           sample_sequence)
+    from gstx_torch.models.decoder import quantize_memory_kv
+
+    def prepare():
+        kv, mask = model.decode_prepare(*args)
+        if quantize:
+            kv = quantize_memory_kv(kv, mask, torch.bfloat16)
+        return kv, mask
 
     dev = torch.device("cuda")
     ids = torch.from_numpy(batch["enc_input_ids"]).to(dev)
@@ -305,8 +599,8 @@ def breakdown(torch, model, batch, settings, DecodeSettings,
     gen = torch.Generator(device=dev).manual_seed(2)
     q_set = DecodeSettings(ngram_blocking_size=4, **settings)
     with torch.no_grad():
-        model.decode_prepare(*args)  # warm
-        (kv, mask), enc_ms = synced(lambda: model.decode_prepare(*args))
+        prepare()  # warm
+        (kv, mask), enc_ms = synced(torch, prepare)
 
         def decode():
             caches = init_cache(model.dec_config, ids.shape[0],
@@ -315,39 +609,58 @@ def breakdown(torch, model, batch, settings, DecodeSettings,
                 lambda tok, pos, c: model.decode_step(tok, pos, c, kv, mask),
                 gen, ids.shape[0], caches, q_set, ngram_source=ids,
                 device=dev)
-        seq, dec_ms = synced(decode)
-        _, ppl_ms = synced(lambda: model.decode_logits_cached(
+        seq, dec_ms = synced(torch, decode)
+        _, ppl_ms = synced(torch, lambda: model.decode_logits_cached(
             seq, (seq != 0).long(), kv, mask))
     round_ms = 2 * enc_ms + 2 * dec_ms + ppl_ms
-    log(f"[phase 4] one round at context 256, batch {ids.shape[0]}: "
-        f"encoder+memory {enc_ms:.1f} ms x2, 18-step decode {dec_ms:.1f} ms "
-        f"x2 ({dec_ms / q_set.max_steps:.2f} ms/step), answer scoring "
+    log(f"[{tag}] one round at context 256, batch {ids.shape[0]}: "
+        f"encoder+memory{'+int8' if quantize else ''} {enc_ms:.1f} ms x2, "
+        f"18-step decode {dec_ms:.1f} ms x2 "
+        f"({dec_ms / q_set.max_steps:.2f} ms/step), answer scoring "
         f"{ppl_ms:.1f} ms; sum {round_ms:.1f} ms "
-        f"(decode {200 * dec_ms / round_ms:.0f}%)")
+        f"(decode {200 * dec_ms / round_ms:.0f}%) on {card}")
 
+
+def profile_round(torch, model, batch, settings, card, tag, quantize):
+    """One round under torch.profiler: the device's busy share and its top
+    kernels.  Run after every timed measurement: on an H100 machine the
+    engine's timings taken after a profiled round ran 26-50% slower for the
+    rest of the run."""
     from torch.profiler import ProfilerActivity, profile
 
+    from gstx_torch.decode.dialog_engine import make_dialog_engine
+    from gstx_torch.decode.sampler import DecodeSettings
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q_set = DecodeSettings(ngram_blocking_size=4, **settings)
     one = make_dialog_engine(
         num_rounds=1, q_settings=q_set,
         a_settings=DecodeSettings(ngram_blocking_size=0, **settings),
-        dtype=torch.bfloat16, device="cuda")
+        dtype=torch.bfloat16, quantize_memory=quantize, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = synced(lambda: one(model, model, batch, gen))
+        _, wall_ms = synced(torch, lambda: one(model, model, batch, gen))
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
-        log("[phase 4] profiler: no device time recorded; busy share not "
+        log(f"[{tag}] profiler: no device time recorded; busy share not "
             "measured")
         return
-    log(f"[phase 4] profiled round at context 256: wall {wall_ms:.1f} ms "
+    log(f"[{tag}] profiled round at context 256: wall {wall_ms:.1f} ms "
         f"(profiler on), device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} "
         f"kernel launches, on {card}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[phase 4]   {e.self_device_time_total / 1e3:9.2f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
+
+
+SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
+           "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
+           "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
+           "fused_attention_batch": "gstx_torch/kernels/csrc/attention.cu",
+           "quant_decode_attention": "gstx_torch/kernels/csrc/decode_attn.cu"}
 
 
 def main():
@@ -363,9 +676,14 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from gstx_torch.kernels import attention as kattn
     from gstx_torch.kernels import build
+    from gstx_torch.kernels import decode_attn as kdecode
     from gstx_torch.kernels import ffn as kffn
 
+    # the plain versions' f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
     log(f"[phase 1] card: {card}; torch {torch.__version__} "
@@ -378,16 +696,22 @@ def main():
     for text in build.build_log:
         print(text, file=sys.stderr)
 
-    entries = kernel_phase(torch, kffn)
-    counts = engine_phase(torch, np, kffn, ROUNDS, TIMED_BATCHES, card)
+    entries = kernel_phase(torch, kffn, kattn, kdecode)
+    default_counts, int8_counts = engine_phases(
+        torch, np, Counters(kffn, kattn, kdecode), ROUNDS, TIMED_BATCHES,
+        card)
 
     kernels = []
     for name, replaces, rows in entries:
         main_row = rows[0]
+        # each kernel's launches on the path that runs it: the default
+        # configuration for kernels 1-2, the all-kernels one for 3-5
+        on_default = name in ("fused_dense_ln", "fused_ffn")
         kernels.append(dict(
-            name=name, route="cuda",
-            source="gstx_torch/kernels/csrc/ffn.cu", replaces=replaces,
-            launches=counts[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=replaces,
+            launches=(default_counts if on_default else int8_counts)[name],
+            launches_by_path={"default": default_counts[name],
+                              "int8_attention": int8_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

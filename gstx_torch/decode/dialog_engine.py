@@ -13,7 +13,7 @@ Differences from the JAX engine, none of which changes the math:
   * the dialog context and the KV caches are updated in place;
   * the models carry their weights; the engine casts them to its dtype in
     place on first use (the JAX engine's one-time precast);
-  * no device mesh and no int8 decode memory yet.
+  * no device mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
 from gstx_torch.core.device import resolve_device
 from gstx_torch.decode.sampler import (DecodeSettings, init_cache,
                                        sample_sequence)
+from gstx_torch.models import decoder as tdecoder
 from gstx_torch.models.encdec import (GSTVisualDialog,
                                       derive_labels_and_inputs, precast_,
                                       teacher_forced_nll)
@@ -92,6 +93,7 @@ def make_dialog_engine(num_rounds: int = 10,
                        dtype=torch.float32,
                        context_buckets: Tuple[int, ...] = (),
                        dynamic_buckets: bool = False,
+                       quantize_memory: bool = False,
                        device="cuda"):
     """Build the dialog-generation function.
 
@@ -108,6 +110,13 @@ def make_dialog_engine(num_rounds: int = 10,
     0 after the softmax).  ``dynamic_buckets`` picks each round's bucket
     from the batch's actual maximum length (one host sync per round)
     instead of the static worst-case schedule.
+
+    ``quantize_memory``: on a bf16 engine, each utterance's cross-attention
+    memory is quantized to int8 (``decoder.quantize_memory_kv``) for its
+    decode steps and its answer-scoring pass; an f32 engine never
+    quantizes.  One-token decode steps then read the int8 memory through the
+    ``quant_decode_attention`` kernel when
+    ``gstx_torch.kernels.decode_attn.enable_kernel()`` is on.
     """
     device = resolve_device(device)
 
@@ -125,6 +134,10 @@ def make_dialog_engine(num_rounds: int = 10,
         mem_kv, mem_mask = model.decode_prepare(
             state.enc_input_ids, image["feat"], image["loc"],
             state.enc_segments, att, image["mask"])
+        if quantize_memory and dtype == torch.bfloat16:
+            # the memory is static for the utterance: int8 halves what every
+            # decode step reads (gstx/decode/dialog_engine.py:157-166)
+            mem_kv = tdecoder.quantize_memory_kv(mem_kv, mem_mask, dtype)
 
         def step_fn(tok, pos, caches):
             return model.decode_step(tok, pos, caches, mem_kv, mem_mask)

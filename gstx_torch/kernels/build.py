@@ -101,6 +101,13 @@ def library() -> ctypes.CDLL:
         lib.gstx_dense_ln.restype = i32
         lib.gstx_ffn.argtypes = [ptr] * 8 + [i32, i32, i32, f32, ptr]
         lib.gstx_ffn.restype = i32
+        lib.gstx_attention.argtypes = (
+            [ptr] * 5 + [i32] * 5
+            + [ctypes.POINTER(ctypes.c_longlong), f32, i32, i32, ptr])
+        lib.gstx_attention.restype = i32
+        lib.gstx_quant_decode_attention.argtypes = (
+            [ptr] * 5 + [i32] * 4 + [ctypes.c_longlong, i32, i32, ptr])
+        lib.gstx_quant_decode_attention.restype = i32
         lib.gstx_error_string.argtypes = [i32]
         lib.gstx_error_string.restype = ctypes.c_char_p
         _lib = lib

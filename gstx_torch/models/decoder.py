@@ -1,17 +1,22 @@
 """Causal BERT decoder with cross-attention and a KV cache (port of
-``gstx/models/decoder.py``, lines 90-358).
+``gstx/models/decoder.py``, lines 43-358).
 
   * teacher-forced path: full-sequence causal self-attention and
     cross-attention over the fused memory;
   * decode path: the memory's cross-attention K/V are computed once per
     utterance (:meth:`GSTDecoderModel.precompute_memory`) and self-attention
-    K/V accumulate in a fixed-shape cache, so each step is O(1) matmuls.
+    K/V accumulate in a fixed-shape cache, so each step is O(1) matmuls;
+  * int8 memory: :func:`quantize_memory_kv` turns each layer's (k, v) into
+    (k_int8, v_int8, k_scale, v_scale), which every path accepts in place of
+    (k, v).  A one-token decode step then reads it through the
+    ``quant_decode_attention`` kernel when its switch is on
+    (``gstx_torch/kernels/decode_attn.py``); other query lengths, and the
+    switch off, run the scale-folded unfused ops.
 
 The layers are reference HF BertLayer with crossattention; their parameters
 sit under ``decoder.decoder.bert.encoder.layer`` in the full model.  The
 decoder's FFN and projections are plain ops, as in the JAX package (no
-fused kernel runs here).  The int8 cross-attention memory comes with the
-decode-attention kernel in a later slice.
+fused kernel runs here).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gstx_torch.core.config import DecoderConfig
+from gstx_torch.kernels import decode_attn as kdecode
 from gstx_torch.models.layers import (
     MASK_VALUE,
     DenseLN,
@@ -36,6 +42,41 @@ from gstx_torch.models.layers import (
 )
 
 Cache = Dict[str, torch.Tensor]
+
+
+def quantize_memory_kv(memory_kv, memory_add_mask, dtype=torch.bfloat16):
+    """Symmetric per-(batch, head, channel) int8 quantization of the
+    precomputed cross-attention K/V (``gstx/models/decoder.py:43-79``).
+
+    Valid memory slots are those whose additive mask is above -5000.  The
+    scale is ``max(absmax / 127, 1e-8)`` over the valid slots, so it does
+    not depend on the bucket width, and is stored in ``dtype``; values are
+    ``round(t / scale)`` (half to even, as ``jnp.round``) with padding slots
+    zeroed.  Returns per-layer 4-tuples (k_int8, v_int8, k_scale, v_scale),
+    the int8 tensors contiguous [B, H, M, dh] for the decode kernel."""
+    valid = (memory_add_mask[:, 0, 0, :] > -5000.0)[:, None, :, None]
+
+    def q(t):
+        a = torch.where(valid, t.abs(), 0).float()
+        scale = torch.clamp(a.amax(dim=2, keepdim=True) / 127.0, min=1e-8)
+        inv = 1.0 / scale
+        ti = torch.round(t.float() * inv).to(torch.int8)
+        return (torch.where(valid, ti, 0).contiguous(), scale.to(dtype))
+
+    out = []
+    for k, v in memory_kv:
+        kq, ks = q(k)
+        vq, vs = q(v)
+        out.append((kq, vq, ks, vs))
+    return out
+
+
+def dequantize_kv(mem):
+    """(k, v) passthrough; (k_int8, v_int8, k_scale, v_scale) -> scaled."""
+    if len(mem) == 2:
+        return mem
+    kq, vq, ks, vs = mem
+    return kq.to(ks.dtype) * ks, vq.to(vs.dtype) * vs
 
 
 class _Attention(nn.Module):
@@ -76,11 +117,36 @@ class DecoderLayer(nn.Module):
         return _project_ln(merge_heads(ctx), self.attention.output, x)
 
     def _cross_block(self, x, mem, mem_mask):
-        mem_k, mem_v = mem
+        """Cross-attention over the static memory: ``mem`` is a layer's
+        (k, v) or its int8 4-tuple from :func:`quantize_memory_kv`."""
         q = split_heads(linear(x, self.crossattention.self.query),
                         self.num_heads)
-        ctx = attend(q, mem_k, mem_v, mem_mask)
+        if len(mem) == 4:
+            ctx = self._quant_cross_attend(q, mem, mem_mask)
+        else:
+            mem_k, mem_v = mem
+            ctx = attend(q, mem_k, mem_v, mem_mask)
         return _project_ln(merge_heads(ctx), self.crossattention.output, x)
+
+    @staticmethod
+    def _quant_cross_attend(q, mem, mem_mask):
+        """Scale-folded int8 cross-attention (``decoder.py:158-189``): the
+        K scale and 1/sqrt(dh) fold into q (rounded to the activation dtype)
+        before the scores, the V scale into the context after PV, so no
+        dequantized copy of the memory is made.  A one-token query goes
+        through the decode kernel when its switch is on."""
+        kq, vq, ks, vs = mem
+        dt = q.dtype
+        q = (q.float() * ks.float() * (1.0 / float(q.shape[-1]) ** 0.5)
+             ).to(dt)
+        ctx = kdecode.maybe_quant_decode_attention(q, kq, vq, mem_mask)
+        if ctx is None:
+            scores = torch.matmul(q.float(), kq.float().transpose(-1, -2))
+            if mem_mask is not None:
+                scores = scores + mem_mask.float()
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            ctx = torch.matmul(probs.float(), vq.float())
+        return (ctx * vs.float()).to(dt)
 
     def _ffn_block(self, x):
         h = F.gelu(linear(x, self.intermediate.dense))  # exact erf
@@ -182,7 +248,8 @@ class GSTDecoderModel(nn.Module):
         return x
 
     def precompute_memory(self, memory):
-        """Per-layer cross K/V for a fixed memory, once per utterance."""
+        """Per-layer cross K/V for a fixed memory, once per utterance (a
+        list of (k, v); :func:`quantize_memory_kv` makes the int8 form)."""
         return [layer.memory_kv(memory) for layer in self.layers]
 
     def step(self, x, pos: int, caches: List[Cache], memory_kv,

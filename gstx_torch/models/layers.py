@@ -14,6 +14,9 @@ fused sites (attention-output projection + LayerNorm, and the encoder FFN)
 a bf16 activation with widths divisible by 128 goes through the CUDA kernels
 of ``gstx_torch/kernels/ffn.py`` (the gate of ``maybe_fused_*``,
 ``gstx/kernels/ffn.py:395-427``); anything else runs the unfused ops.
+:func:`attend` goes through the attention kernel of
+``gstx_torch/kernels/attention.py`` when its switch is on (off by default,
+as in the reference).
 
 This serving slice has no dropout: every block computes the deterministic
 forward.
@@ -24,11 +27,11 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import ffn as kffn
 
 MASK_VALUE = -10000.0  # reference vilbert_dialog.py:1364
@@ -90,17 +93,23 @@ def merge_heads(x):
 
 
 def attend(q, k, v, mask: Optional[torch.Tensor]):
-    """Scaled dot-product attention over [B, H, L, Dh] tensors, written out
-    (the plain version of the attention kernel a later slice adds).
+    """Scaled dot-product attention over [B, H, L, Dh] tensors.
+
+    The kernel gate first (``layers.py:210-216``): with the attention switch
+    on (:func:`gstx_torch.kernels.attention.enable`), a query of 8 or more
+    rows whose mask carries its batch goes through ``fused_attention``
+    (f32 probabilities), returned in the activation dtype.  Otherwise the
+    unfused ops below, which ``attention_batch_plain`` reproduces.
 
     The scores must be f32, as JAX's ``preferred_element_type=f32`` keeps
     them: a bf16 ``matmul`` would round them to bf16, so the operands are
     upcast.  The softmax runs in f32; the probabilities are cast to the
     activation dtype for the PV product, whose result has that dtype.
     ``mask`` is additive, broadcastable to [B, H, Lq, Lk]."""
-    dh = q.shape[-1]
-    # 1/sqrt(dh) rounded in f32 exactly as jnp computes it
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    fused = kattn.maybe_fused_attention(q, k, v, mask)
+    if fused is not None:
+        return fused.to(q.dtype)
+    scale = kattn.softmax_scale(q.shape[-1])
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask.float()

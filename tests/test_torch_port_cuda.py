@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain version at
-small and ragged shapes, the launch counter, and the wrapper's refusals.
+small and ragged shapes, the launch counters, and the wrappers' refusals.
 Marked ``cuda``; skipped on a machine without a card.  On the card:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -8,6 +8,8 @@ Marked ``cuda``; skipped on a machine without a card.  On the card:
 import pytest
 import torch
 
+from gstx_torch.kernels import attention as kattn
+from gstx_torch.kernels import decode_attn as kdecode
 from gstx_torch.kernels import ffn as kffn
 
 pytestmark = pytest.mark.cuda
@@ -87,3 +89,157 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     w.requires_grad_(True)
     with pytest.raises(RuntimeError):
         kffn.fused_dense_ln(x, w, b, r, g, be)
+
+
+F32_TOL = 2e-5  # f32 attention: summation order only
+
+
+def _attn_inputs(dev, b, h, lq, lk, dh, dtype, mask, seed=2, split=False):
+    """q, k, v [B, H, L, dh] (as heads-split views of [B, L, H*dh] when
+    ``split``) and an additive mask of the kind asked for."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(n):
+        if split:
+            x = torch.randn(b, n, h * dh, generator=g, device=dev)
+            return x.to(dtype).view(b, n, h, dh).transpose(1, 2)
+        return torch.randn(b, h, n, dh, generator=g, device=dev).to(dtype)
+    q, k, v = r(lq), r(lk), r(lk)
+    shape = {"none": None, "padding": (b, 1, 1, lk),
+             "per_query": (b, 1, lq, lk), "per_head": (b, h, lq, lk)}[mask]
+    m = None
+    if shape is not None:
+        m = torch.where(torch.rand(*shape, generator=g, device=dev) < 0.3,
+                        -10000.0, 0.0)
+        m[..., 0] = 0.0
+    return q, k, v, m
+
+
+def _attn_close(k, p, dtype):
+    if dtype == torch.float32:
+        assert torch.allclose(k, p, rtol=F32_TOL, atol=F32_TOL), \
+            float((k - p).abs().max())
+    else:
+        _close(k, p)
+
+
+ATTN_SHAPES = [(2, 3, 70, 131, 64), (2, 2, 33, 9, 128), (1, 3, 8, 17, 32),
+               (2, 2, 40, 24, 16), (3, 12, 18, 18, 64), (1, 2, 256, 37, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mask", ["padding", "per_query", "per_head",
+                                  "none"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_attention_kernel_matches_plain(dev, shape, mask, dtype):
+    q, k, v, m = _attn_inputs(dev, *shape, dtype, mask,
+                              split=shape[0] == 2)
+    _attn_close(kattn.fused_attention(q, k, v, m),
+                kattn.attention_plain(q, k, v, m), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mask", ["padding", "per_query", "none"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_attention_batch_kernel_matches_plain(dev, shape, mask, dtype):
+    q, k, v, m = _attn_inputs(dev, *shape, dtype, mask,
+                              split=shape[0] == 2)
+    _attn_close(kattn.fused_attention_batch(q, k, v, m),
+                kattn.attention_batch_plain(q, k, v, m), dtype)
+
+
+def test_attention_takes_a_bf16_mask_and_longest_keys(dev):
+    q, k, v, m = _attn_inputs(dev, 1, 2, 40, kattn.max_key_length(128), 128,
+                              torch.bfloat16, "padding")
+    _close(kattn.fused_attention(q, k, v, m.to(torch.bfloat16)),
+           kattn.attention_plain(q, k, v, m.to(torch.bfloat16)))
+
+
+def test_attention_launch_counters(dev):
+    kattn.reset_launches()
+    q, k, v, m = _attn_inputs(dev, 2, 2, 16, 16, 64, torch.bfloat16,
+                              "padding")
+    kattn.fused_attention(q, k, v, m)
+    kattn.fused_attention(q, k, v, None)
+    kattn.fused_attention_batch(q, k, v, m)
+    kattn.attention_plain(q, k, v, m)
+    assert kattn.launches == {"fused_attention": 2,
+                              "fused_attention_batch": 1}
+
+
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v, m = _attn_inputs(dev, 2, 2, 16, 20, 64, torch.bfloat16,
+                              "per_head")
+    with pytest.raises(ValueError):  # per-head mask: not the batch kernel's
+        kattn.fused_attention_batch(q, k, v, m)
+    with pytest.raises(TypeError):
+        kattn.fused_attention(q, k.float(), v, None)
+    with pytest.raises(ValueError):  # head width 24
+        kattn.fused_attention(q[..., :24].contiguous(),
+                              k[..., :24].contiguous(),
+                              v[..., :24].contiguous(), None)
+    with pytest.raises(ValueError):  # last dimension not contiguous
+        kattn.fused_attention(q.transpose(2, 3), k, v, None)
+    long_k = torch.zeros(2, 2, kattn.max_key_length(64) + 1, 64,
+                         dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        kattn.fused_attention(q, long_k, long_k, None)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError):
+        kattn.fused_attention(q, k, v, None)
+
+
+def _decode_inputs(dev, b, h, m, dh, qdtype, valid=0.8, seed=3):
+    """q as the decoder folds it (K scale and 1/sqrt(dh): scores of O(1)),
+    int8 K/V zero past the valid slots, and the additive mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, 1, dh, generator=g, device=dev) * 0.05
+         ).to(qdtype)
+    n_valid = torch.randint(1, m + 1, (b,), generator=g, device=dev)
+    n_valid[0] = max(1, int(valid * m))
+    slot = torch.arange(m, device=dev)
+    valid_slots = slot[None, :] < n_valid[:, None]                # [B, M]
+    kv = [torch.randint(-127, 128, (b, h, m, dh), generator=g, device=dev,
+                        dtype=torch.int8) * valid_slots[:, None, :, None]
+          for _ in range(2)]
+    mask = torch.where(valid_slots, 0.0, -10000.0)[:, None, None, :]
+    return q, kv[0].to(torch.int8), kv[1].to(torch.int8), mask
+
+
+def _decode_close(k, p):
+    assert bool((k - p).abs().le(5e-3 + 1e-4 * p.abs()).all()), \
+        float((k - p).abs().max())
+
+
+@pytest.mark.parametrize("mask", ["f32", "bf16", "broadcast", "none"])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(3, 4, 37, 16), (7, 12, 229, 64),
+                                   (2, 3, 70, 128), (5, 2, 100, 32),
+                                   (1, 1, 1, 64)], ids=str)
+def test_quant_decode_kernel_matches_plain(dev, shape, qdtype, mask):
+    q, k, v, m = _decode_inputs(dev, *shape, qdtype)
+    m = {"f32": m, "bf16": m.to(torch.bfloat16), "broadcast": m[:1],
+         "none": None}[mask]
+    _decode_close(kdecode.quant_decode_attention(q, k, v, m),
+                  kdecode.quant_decode_attention_plain(q, k, v, m))
+
+
+def test_quant_decode_launch_counter_and_refusals(dev):
+    q, k, v, m = _decode_inputs(dev, 2, 3, 40, 64, torch.bfloat16)
+    kdecode.reset_launches()
+    kdecode.quant_decode_attention(q, k, v, m)
+    kdecode.quant_decode_attention_plain(q, k, v, m)
+    assert kdecode.launches == {"quant_decode_attention": 1}
+    with pytest.raises(TypeError):
+        kdecode.quant_decode_attention(q, k.float(), v, m)
+    with pytest.raises(ValueError):  # non-contiguous K
+        kdecode.quant_decode_attention(q, k.transpose(2, 3), v, m)
+    with pytest.raises(ValueError):  # two query rows
+        kdecode.quant_decode_attention(q.expand(-1, -1, 2, -1), k, v, m)
+    with pytest.raises(ValueError):  # head width 24
+        kdecode.quant_decode_attention(q[..., :24].contiguous(),
+                                       k[..., :24].contiguous(),
+                                       v[..., :24].contiguous(), m)
