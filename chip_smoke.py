@@ -2,9 +2,13 @@
 """Drive the PyTorch port (gstx_torch) on one CUDA card.
 
   phase 1  the card: its name and power limit (nvidia-smi), and the build of
-           the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a);
+           the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a):
+           ptxas's registers and spills per kernel, and a cuobjdump SASS
+           census of the attention kernels (a bf16 instance without HMMA
+           and LDGSTS instructions fails);
   phase 2  each kernel against its plain PyTorch version at every shape
-           the main paths give it plus a ragged one: bf16 fused_dense_ln,
+           the main paths give it plus a ragged one (and, for attention,
+           K/V views whose rows past Lk hold NaN): bf16 fused_dense_ln,
            fused_ffn, fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
@@ -55,6 +59,8 @@ result; so does a machine without CUDA or a directory without gstx_torch.
 import copy
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,6 +128,54 @@ def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def demangle(names):
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool:
+        res = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        out = res.stdout.splitlines()
+        if res.returncode == 0 and len(out) == len(names):
+            names = out
+    return [re.sub(r"\(anonymous namespace\)::|^void ", "", n) for n in names]
+
+
+def build_census(build):
+    """Phase 1: ptxas's registers and spills for every kernel, and the
+    attention kernels' instructions in the built library's SASS: tensor-core
+    products (HMMA), asynchronous copies (LDGSTS), ldmatrix (LDSM) and f32
+    FMAs (FFMA).  Fails if a bf16 (mma_attention_kernel) instance has no
+    HMMA or no LDGSTS."""
+    text = "\n".join(build.build_log)
+    segs = re.split(r"Compiling entry function '", text)[1:]
+    for name, seg in zip(demangle([g.split("'")[0] for g in segs]), segs):
+        regs = re.search(r"Used (\d+) registers", seg)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", seg)
+        log(f"[phase 1] ptxas {name}: "
+            f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+            f"{'/'.join(spill.groups()) if spill else '?'} bytes")
+    if not segs:
+        log("[phase 1] ptxas: no build log (library cached); not measured")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[phase 1] SASS census: no cuobjdump; not measured")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.build())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    blocks = [b for b in sass.split("Function : ")[1:]
+              if "attention_kernel" in b.split()[0]]
+    for name, block in zip(demangle([b.split()[0] for b in blocks]), blocks):
+        counts = {op: len(re.findall(rf"\b{op}\b", block))
+                  for op in ("HMMA", "LDGSTS", "LDSM", "FFMA")}
+        log(f"[phase 1] SASS {name}: " + ", ".join(
+            f"{op} {n}" for op, n in counts.items()))
+        if "mma_attention_kernel" in name and \
+                not (counts["HMMA"] and counts["LDGSTS"]):
+            raise AssertionError(f"{name}: no tensor-core or cp.async "
+                                 "instruction in its SASS")
 
 
 def kernel_phase(torch, kffn, kattn, kdecode):
@@ -216,28 +270,52 @@ def padding_mask(torch, gen, b, n, lo):
     return torch.where(valid, 0.0, -10000.0)
 
 
+# (label, B, H, Lq, Lk, dh): every shape the engine gives the attention
+# kernels (the text self-attention at each context bucket, the visual self-
+# and co-attentions, the scoring pass's causal self-attention and its
+# cross-attention over the 293-slot bf16 memory), a ragged one, and K/V as
+# views of buffers whose rows past Lk hold NaN
+ATTENTION_SHAPES = [
+    ("text self 96x12x256->256x64", 96, 12, 256, 256, 64),
+    ("text self 96x12x128->128x64", 96, 12, 128, 128, 64),
+    ("text self 96x12x192->192x64", 96, 12, 192, 192, 64),
+    ("visual self 96x8x37->37x128", 96, 8, 37, 37, 128),
+    ("co t->v 96x8x256->37x128", 96, 8, 256, 37, 128),
+    ("co v->t 96x8x37->256x128", 96, 8, 37, 256, 128),
+    ("scoring self 96x12x18->18x64 causal", 96, 12, 18, 18, 64),
+    ("scoring cross 96x12x18->293x64", 96, 12, 18, 293, 64),
+    ("ragged 7x12x100->171x64", 7, 12, 100, 171, 64),
+    ("NaN tail 96x12x18->293x64", 96, 12, 18, 293, 64)]
+
+
+def attention_inputs(torch, randn, gen, label, b, h, lq, lk, dh):
+    """q, k, v for one of ATTENTION_SHAPES, as the heads-split views of the
+    [B, L, H*dh] projections the model hands the kernel (K and V views of
+    longer buffers whose rows past Lk hold NaN for a "NaN" label), and the
+    f32 additive mask: padding [B, 1, 1, Lk], or [B, 1, Lq, Lk] with the
+    causal triangle for a "causal" label."""
+    def heads(n, nan_tail=False):
+        x = randn(b, n + 64 * nan_tail, h * dh)
+        if nan_tail:  # rows past n hold NaN; the view stops at n
+            x[:, n:] = float("nan")
+        return x[:, :n].view(b, n, h, dh).transpose(1, 2)
+    tail = "NaN" in label
+    q, k, v = heads(lq), heads(lk, tail), heads(lk, tail)
+    mask = padding_mask(torch, gen, b, lk, max(1, lk // 4))[:, None, None, :]
+    if "causal" in label:
+        tri = torch.ones(lq, lk, device="cuda").tril() > 0
+        mask = torch.where(tri, mask, -10000.0)
+    return q, k, v, mask.contiguous()
+
+
 def attention_rows(torch, F, kattn, randn, held):
     """fused_attention and fused_attention_batch at the encoder's and the
-    scoring pass's shapes (B=96), Q/K/V as the heads-split views of the
-    projections the model hands them."""
-    shapes = [("text self 96x12x256->256x64", 96, 12, 256, 256, 64),
-              ("visual self 96x8x37->37x128", 96, 8, 37, 37, 128),
-              ("co t->v 96x8x256->37x128", 96, 8, 256, 37, 128),
-              ("co v->t 96x8x37->256x128", 96, 8, 37, 256, 128),
-              ("scoring self 96x12x18->18x64 causal", 96, 12, 18, 18, 64),
-              ("ragged 7x12x100->171x64", 7, 12, 100, 171, 64)]
+    scoring pass's shapes (B=96)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {"fused_attention": [], "fused_attention_batch": []}
-    for label, b, h, lq, lk, dh in shapes:
-        def heads(n):
-            return randn(b, n, h * dh).view(b, n, h, dh).transpose(1, 2)
-        q, k, v = heads(lq), heads(lk), heads(lk)
-        mask = padding_mask(torch, gen, b, lk, max(1, lk // 4))
-        mask = mask[:, None, None, :]                    # [B, 1, 1, Lk]
-        if "causal" in label:                            # [B, 1, Lq, Lk]
-            tri = torch.ones(lq, lk, device="cuda").tril() > 0
-            mask = torch.where(tri, mask, -10000.0)
-        mask = mask.contiguous()
+    for label, b, h, lq, lk, dh in ATTENTION_SHAPES:
+        q, k, v, mask = attention_inputs(torch, randn, gen, label, b, h, lq,
+                                         lk, dh)
         mask16 = mask.to(torch.bfloat16)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask16))
@@ -654,6 +732,12 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
+    attn = [e for e in kernels if "attention_kernel" in e.key]
+    if attn:
+        attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+        log(f"[{tag}] attention kernels (csrc/attention.cu): {attn_ms:.2f} ms "
+            f"over {sum(e.count for e in attn)} launches, "
+            f"{attn_ms / busy_ms:.3f} of device busy")
 
 
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
@@ -695,6 +779,7 @@ def main():
         f"{'%.2f s' % build.build_seconds if build.build_seconds else 'cached'})")
     for text in build.build_log:
         print(text, file=sys.stderr)
+    build_census(build)
 
     entries = kernel_phase(torch, kffn, kattn, kdecode)
     default_counts, int8_counts = engine_phases(

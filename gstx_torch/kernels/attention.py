@@ -5,14 +5,20 @@ The port of ``gstx/kernels/attention.py``: one hand-written CUDA kernel for
 Hopper (``csrc/attention.cu``) in two instances, and their plain PyTorch
 versions.
 
-  * :func:`fused_attention` -- Q, K and V widened to f32, f32 scores and
-    probabilities, output in q's dtype; replaces ``fused_attention``
+  * :func:`fused_attention` -- f32 scores and probabilities, output in
+    q's dtype; replaces ``fused_attention``
     (``gstx/kernels/attention.py:64``).  Masks [B, 1|H, 1|Lq, Lk].
   * :func:`fused_attention_batch` -- the same function with the
     probabilities cast to V's dtype before PV, which is what the unfused
     :func:`gstx_torch.models.layers.attend` computes; replaces
     ``fused_attention_batch`` (``attention.py:143``).  Masks [B, 1, 1|Lq, Lk].
     Neither package calls it on a model path.
+
+bf16 inputs run both products on the tensor cores with an online softmax
+(f32 probabilities as a hi + lo pair of bf16 for :func:`fused_attention`);
+they hold within about one bf16 ulp of the plain versions, not bit for bit.
+f32 inputs run f32 FMAs with the score rows in shared memory, which caps Lk
+(:func:`max_key_length`).
 
 The switch :func:`enable` (off by default, as in the reference) routes
 ``layers.attend`` through :func:`maybe_fused_attention`.
@@ -38,9 +44,12 @@ launches = {"fused_attention": 0, "fused_attention_batch": 0}
 
 _ENABLED = False
 
-# the kernel's tiling (csrc/attention.cu): 32 query rows and 64-key tiles,
-# Q/K/V rows padded by 4 floats, score rows of Lk rounded up to 32 plus 4
+# the f32 instances' tiling (csrc/attention.cu): 32 query rows and 64-key
+# tiles, Q/K/V rows padded by 4 floats, score rows of Lk rounded up to 32
+# plus 4
 _QT, _KT, _PAD, _SMEM_LIMIT = 32, 64, 4, 232448
+# the bf16 instances keep no score rows: key indices stay 32-bit ints
+_BF16_MAX_LK = 2 ** 31 - _KT
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -85,8 +94,11 @@ def attention_batch_plain(q, k, v, mask=None):
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
-def max_key_length(dh: int) -> int:
-    """The longest Lk whose score rows fit the kernel's shared memory."""
+def max_key_length(dh: int, dtype: torch.dtype) -> int:
+    """The longest Lk the kernel takes: for f32, whose score rows fit its
+    shared memory; for bf16, which streams the keys, the int range."""
+    if dtype == torch.bfloat16:
+        return _BF16_MAX_LK
     rows = (_SMEM_LIMIT // 4 - (_QT + _KT) * (dh + _PAD)) // _QT
     return (rows - _PAD) // 32 * 32
 
@@ -110,18 +122,20 @@ def _launch(name, q, k, v, mask, round_probs):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"{name}: head width {dh} not in {_HEAD_DIMS}")
-    if not 0 < lk <= max_key_length(dh):
-        raise ValueError(f"{name}: Lk={lk} outside 1..{max_key_length(dh)}")
+    if not 0 < lk <= max_key_length(dh, q.dtype):
+        raise ValueError(f"{name}: Lk={lk} outside "
+                         f"1..{max_key_length(dh, q.dtype)}")
+    # 16-byte loads (cp.async for bf16, float4 for f32): unit last stride,
+    # batch, head and row strides of whole 16-byte vectors, aligned base
+    vec = 16 // q.element_size()
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
-        # 4-element vector loads: unit last stride, 4-element row strides,
-        # 16-byte aligned base
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or \
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3]) or \
                 t.data_ptr() % 16:
             raise ValueError(f"{name}: q, k, v need a contiguous last "
-                             "dimension, strides divisible by 4 and 16-byte "
-                             "aligned data")
+                             f"dimension, strides divisible by {vec} and "
+                             "16-byte aligned data")
     mask_strides = (0, 0, 0)
     if mask is not None:
         if mask.device != q.device:

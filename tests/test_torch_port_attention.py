@@ -137,6 +137,88 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
                               "fused_attention_batch": 0}
 
 
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _emulate_bf16_kernel(q, k, v, mask, round_probs):
+    """The bf16 kernel's arithmetic (``mma_attention_kernel`` in
+    csrc/attention.cu) in f32 on the CPU: 64-key tiles; S from exact bf16
+    products; ``s * scale``, then ``+ mask``; a running row max and a running
+    sum of the unrounded exponentials ``2^(s log2e - m log2e)``; the
+    accumulator rescaled at each tile; P rounded to bf16 (``round_probs``) or
+    split into bf16 hi + lo for PV; one multiply by the reciprocal sum at the
+    end, rounded once to bf16."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    scale = kattn.softmax_scale(dh)
+    mx = torch.full((b, h, lq, 1), -np.inf)
+    total = torch.zeros(b, h, lq, 1)
+    acc = torch.zeros(b, h, lq, dh)
+
+    def exp_shift(x, m):
+        return torch.exp2(x * LOG2E - m * LOG2E)
+    for j0 in range(0, lk, 64):
+        kt, vt = kf[:, :, j0:j0 + 64], vf[:, :, j0:j0 + 64]
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s + mask[..., j0:j0 + 64].float()
+        m = torch.maximum(mx, s.amax(-1, keepdim=True))
+        base = torch.where(m == -np.inf, 0.0, m)
+        alpha = exp_shift(mx, base)
+        p = exp_shift(s, base)
+        total = total * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.matmul(hi, vt)
+        if not round_probs:
+            pv = pv + torch.matmul((p - hi).to(torch.bfloat16).float(), vt)
+        acc = acc * alpha + pv
+        mx = m
+    return (acc * (1.0 / total)).to(torch.bfloat16)
+
+
+# (b, h, lq, lk, dh, mask): the engine's shape kinds, scaled down to B = H = 2
+EMULATED = {
+    "text_self_256x64": (2, 2, 256, 256, 64, "padding"),
+    "visual_self_37x128": (2, 2, 37, 37, 128, "padding"),
+    "scoring_cross_18x293x64": (2, 2, 18, 293, 64, "padding"),
+    "scoring_self_18x64_causal": (2, 2, 18, 18, 64, "causal"),
+    "ragged_100x171x64": (2, 2, 100, 171, 64, "padding"),
+}
+
+
+@pytest.mark.parametrize("round_probs", [False, True],
+                         ids=["fused_attention", "fused_attention_batch"])
+@pytest.mark.parametrize("shape", sorted(EMULATED))
+def test_bf16_kernel_arithmetic_holds_phase2_tolerance(shape, round_probs):
+    """The kernel's online-softmax arithmetic, rehearsed on the CPU, stays
+    within chip_smoke phase 2's ``1e-2 + 1.6e-2 |plain|`` of the plain
+    version on the same bf16 inputs."""
+    b, h, lq, lk, dh, kind = EMULATED[shape]
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(b, h, lq, lk, dh, seed=11))
+    mask = _padding(_binary(12, b, lk, 0.3))
+    mask[:, :, :, 0] = 0.0  # every row keeps a key
+    if kind == "causal":
+        mask = mask + _causal(b, lq)
+    mask = torch.from_numpy(mask)
+    plain = (kattn.attention_batch_plain if round_probs
+             else kattn.attention_plain)(q, k, v, mask)
+    got = _emulate_bf16_kernel(q, k, v, mask, round_probs)
+    assert got.dtype == torch.bfloat16 and got.shape == plain.shape
+    err = (got.float() - plain.float()).abs()
+    limit = 1e-2 + 1.6e-2 * plain.float().abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def test_max_key_length_per_instance():
+    # f32: the score rows in shared memory; bf16: the streamed keys' int
+    # indices
+    assert kattn.max_key_length(128, torch.float32) == 1408
+    assert kattn.max_key_length(64, torch.float32) > 293
+    assert kattn.max_key_length(64, torch.bfloat16) == 2 ** 31 - 64
+
+
 def test_non_cpu_non_cuda_device_raises():
     q = torch.zeros(1, 2, 8, 64, device="meta")
     with pytest.raises(ValueError):

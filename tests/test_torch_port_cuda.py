@@ -151,10 +151,51 @@ def test_attention_batch_kernel_matches_plain(dev, shape, mask, dtype):
 
 
 def test_attention_takes_a_bf16_mask_and_longest_keys(dev):
-    q, k, v, m = _attn_inputs(dev, 1, 2, 40, kattn.max_key_length(128), 128,
-                              torch.bfloat16, "padding")
+    # the f32 instance's cap (its score rows in shared memory); bf16 has none
+    q, k, v, m = _attn_inputs(dev, 1, 2, 40,
+                              kattn.max_key_length(128, torch.float32), 128,
+                              torch.float32, "padding")
     _close(kattn.fused_attention(q, k, v, m.to(torch.bfloat16)),
            kattn.attention_plain(q, k, v, m.to(torch.bfloat16)))
+
+
+# the bf16 kernel's edges: one key, a ragged last key tile, exactly one
+# tile, one key past it, the scoring pass's 293; one query row, a warp
+# partly past Lq, a second 64-row query tile
+EDGE_SHAPES = ([(2, 3, 33, lk, 64) for lk in (1, 63, 64, 65, 293)]
+               + [(2, 2, lq, 70, 128) for lq in (1, 17, 65)])
+
+
+@pytest.mark.parametrize("kernel", ["fused_attention", "fused_attention_batch"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_attention_bf16_edges_match_plain(dev, shape, kernel):
+    # a per-head mask through fused_attention, per-query through the batch
+    # kernel (which takes no per-head mask)
+    mask = "per_head" if kernel == "fused_attention" else "per_query"
+    q, k, v, m = _attn_inputs(dev, *shape, torch.bfloat16, mask, split=True)
+    plain = {"fused_attention": kattn.attention_plain,
+             "fused_attention_batch": kattn.attention_batch_plain}[kernel]
+    _close(getattr(kattn, kernel)(q, k, v, m), plain(q, k, v, m))
+
+
+@pytest.mark.parametrize("kernel", ["fused_attention", "fused_attention_batch"])
+def test_attention_bf16_ignores_nan_rows_past_lk(dev, kernel):
+    """K and V are views of a larger buffer whose rows past Lk hold NaN:
+    the kernel must read none of them."""
+    b, h, lq, lk, dh = 2, 3, 40, 70, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn(2, b, 128, h * dh, generator=g, device=dev
+                      ).to(torch.bfloat16)
+    buf[:, :, lk:] = float("nan")
+    k, v = (x[:, :lk].view(b, lk, h, dh).transpose(1, 2) for x in buf)
+    q = torch.randn(b, h, lq, dh, generator=g, device=dev).to(torch.bfloat16)
+    m = torch.where(torch.rand(b, 1, 1, lk, generator=g, device=dev) < 0.3,
+                    -10000.0, 0.0)
+    plain = {"fused_attention": kattn.attention_plain,
+             "fused_attention_batch": kattn.attention_batch_plain}[kernel]
+    out = getattr(kattn, kernel)(q, k, v, m)
+    assert bool(torch.isfinite(out.float()).all())
+    _close(out, plain(q, k, v, m))
 
 
 def test_attention_launch_counters(dev):
@@ -182,10 +223,16 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
                               v[..., :24].contiguous(), None)
     with pytest.raises(ValueError):  # last dimension not contiguous
         kattn.fused_attention(q.transpose(2, 3), k, v, None)
-    long_k = torch.zeros(2, 2, kattn.max_key_length(64) + 1, 64,
-                         dtype=torch.bfloat16, device=dev)
+    # a row stride of 68 elements: whole 16-byte vectors in f32, not in bf16
+    padded = torch.zeros(2, 2, 16, 68, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        kattn.fused_attention(q, long_k, long_k, None)
+        kattn.fused_attention(padded[..., :64], k, v, None)
+    kattn.fused_attention(padded.float()[..., :64], k.float(), v.float(),
+                          None)
+    long_k = torch.zeros(2, 2, kattn.max_key_length(64, torch.float32) + 1,
+                         64, device=dev)
+    with pytest.raises(ValueError):
+        kattn.fused_attention(q.float(), long_k, long_k, None)
     q.requires_grad_(True)
     with pytest.raises(RuntimeError):
         kattn.fused_attention(q, k, v, None)
