@@ -4,8 +4,8 @@
   phase 1  the card: its name and power limit (nvidia-smi), and the build of
            the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a):
            ptxas's registers and spills per kernel, and a cuobjdump SASS
-           census of the attention kernels (a bf16 instance without HMMA
-           and LDGSTS instructions fails);
+           census of the attention and FFN kernels (a bf16 attention or an
+           FFN instance without HMMA and LDGSTS instructions fails);
   phase 2  each kernel against its plain PyTorch version at every shape
            the main paths give it plus a ragged one (and, for attention,
            K/V views whose rows past Lk hold NaN): bf16 fused_dense_ln,
@@ -143,12 +143,13 @@ def demangle(names):
 
 def build_census(build):
     """Phase 1: ptxas's registers and spills for every kernel, and the
-    attention kernels' instructions in the built library's SASS: tensor-core
-    products (HMMA), asynchronous copies (LDGSTS), ldmatrix (LDSM) and f32
-    FMAs (FFMA).  Fails if a bf16 (mma_attention_kernel) instance has no
-    HMMA or no LDGSTS."""
+    attention and FFN kernels' instructions in the built library's SASS:
+    tensor-core products (HMMA), asynchronous copies (LDGSTS), ldmatrix
+    (LDSM) and f32 FMAs (FFMA).  Fails if a bf16 (mma_attention_kernel) or
+    an ffn_kernel instance has no HMMA or no LDGSTS."""
     text = "\n".join(build.build_log)
     segs = re.split(r"Compiling entry function '", text)[1:]
+    ffn_spills = []
     for name, seg in zip(demangle([g.split("'")[0] for g in segs]), segs):
         regs = re.search(r"Used (\d+) registers", seg)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -156,8 +157,14 @@ def build_census(build):
         log(f"[phase 1] ptxas {name}: "
             f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
             f"{'/'.join(spill.groups()) if spill else '?'} bytes")
+        if "ffn_kernel" in name and spill:
+            ffn_spills.append(int(spill.group(1)) + int(spill.group(2)))
     if not segs:
         log("[phase 1] ptxas: no build log (library cached); not measured")
+    elif ffn_spills:
+        log(f"[phase 1] ptxas ffn_kernel: {len(ffn_spills)} instances, "
+            f"{sum(s > 0 for s in ffn_spills)} with spills (most "
+            f"{max(ffn_spills)} bytes stored + loaded)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[phase 1] SASS census: no cuobjdump; not measured")
@@ -166,16 +173,45 @@ def build_census(build):
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     blocks = [b for b in sass.split("Function : ")[1:]
-              if "attention_kernel" in b.split()[0]]
+              if re.search(r"attention_kernel|ffn_kernel", b.split()[0])]
     for name, block in zip(demangle([b.split()[0] for b in blocks]), blocks):
         counts = {op: len(re.findall(rf"\b{op}\b", block))
                   for op in ("HMMA", "LDGSTS", "LDSM", "FFMA")}
         log(f"[phase 1] SASS {name}: " + ", ".join(
             f"{op} {n}" for op, n in counts.items()))
-        if "mma_attention_kernel" in name and \
+        if re.search(r"mma_attention_kernel|ffn_kernel", name) and \
                 not (counts["HMMA"] and counts["LDGSTS"]):
             raise AssertionError(f"{name}: no tensor-core or cp.async "
                                  "instruction in its SASS")
+
+
+def make_randn(torch, gen):
+    """Seeded normal draws on the card: ``randn(*shape, scale, dtype,
+    shift)``, bf16 unless ``dtype`` says otherwise."""
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+    return randn
+
+
+# (label, M, D, F): the text FFN at each context bucket (B = 96) and the
+# visual / co-attention FFN, as the encoder calls fused_ffn, and a ragged M
+FFN_SHAPES = [("text 24576x768x3072", 24576, 768, 3072),
+              ("visual/co-v 3552x1024x1024", 3552, 1024, 1024),
+              ("ragged 1000x768x3072", 1000, 768, 3072),
+              ("text ctx128 12288x768x3072", 12288, 768, 3072),
+              ("text ctx192 18432x768x3072", 18432, 768, 3072)]
+
+
+def ffn_inputs(torch, randn, m, d, f):
+    """x, w1, b1, w2, b2, gamma, beta for fused_ffn."""
+    f32 = torch.float32
+    x = randn(m, d)
+    w1, b1 = randn(f, d, scale=0.02), randn(f, scale=0.02, dtype=f32)
+    w2, b2 = randn(d, f, scale=0.02), randn(d, scale=0.02, dtype=f32)
+    g, be = randn(d, scale=0.1, shift=1.0, dtype=f32), \
+        randn(d, scale=0.1, dtype=f32)
+    return x, w1, b1, w2, b2, g, be
 
 
 def kernel_phase(torch, kffn, kattn, kdecode):
@@ -185,10 +221,7 @@ def kernel_phase(torch, kffn, kattn, kdecode):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
-
-    def randn(*shape, scale=1.0, dtype=bf, shift=0.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale
-                + shift).to(dtype)
+    randn = make_randn(torch, gen)
 
     def held(name, label, k, p, abs_tol=ABS_TOL, rel_tol=REL_TOL):
         err = (k.float() - p.float()).abs()
@@ -229,17 +262,13 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         log(f"[phase 2] fused_dense_ln {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_dense_ln", "gstx/kernels/ffn.py:254", rows))
 
-    ffn_shapes = [("text 24576x768x3072", 24576, 768, 3072),
-                  ("visual/co-v 3552x1024x1024", 3552, 1024, 1024),
-                  ("ragged 1000x768x3072", 1000, 768, 3072)]
+    # the context-bucket shapes draw from a generator of their own, so the
+    # attention rows' inputs stay those of earlier runs
+    own = make_randn(torch, torch.Generator(device=dev).manual_seed(4))
     rows = []
-    for label, m, d, f in ffn_shapes:
-        x = randn(m, d)
-        w1, b1 = randn(f, d, scale=0.02), randn(f, scale=0.02, dtype=f32)
-        w2, b2 = randn(d, f, scale=0.02), randn(d, scale=0.02, dtype=f32)
-        g, be = randn(d, scale=0.1, shift=1.0, dtype=f32), \
-            randn(d, scale=0.1, dtype=f32)
-        args = (x, w1, b1, w2, b2, g, be)
+    for i, (label, m, d, f) in enumerate(FFN_SHAPES):
+        args = ffn_inputs(torch, randn if i < 3 else own, m, d, f)
+        x, w1, b1, w2, b2, g, be = args
         err = held("fused_ffn", label, kffn.fused_ffn(*args),
                    kffn.ffn_plain(*args))
         b116, b216, g16, be16 = b1.to(bf), b2.to(bf), g.to(bf), be.to(bf)
@@ -252,7 +281,8 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         rows.append(dict(shape=label, max_abs_err=err,
                          ms=time_ms(lambda: kffn.fused_ffn(*args)),
                          plain_ms=time_ms(lambda: kffn.ffn_plain(*args)),
-                         bound_ms=bms, bound_by=by, library_ms=lib))
+                         bound_ms=bms, bound_by=by, library_ms=lib,
+                         block_rows=kffn.ffn_block_rows(m, d)))
         log(f"[phase 2] fused_ffn {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_ffn", "gstx/kernels/ffn.py:198", rows))
     entries += attention_rows(torch, F, kattn, randn, held)
@@ -732,12 +762,15 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
-    attn = [e for e in kernels if "attention_kernel" in e.key]
-    if attn:
-        attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
-        log(f"[{tag}] attention kernels (csrc/attention.cu): {attn_ms:.2f} ms "
-            f"over {sum(e.count for e in attn)} launches, "
-            f"{attn_ms / busy_ms:.3f} of device busy")
+    for what, key in (("attention kernels (csrc/attention.cu)",
+                       "attention_kernel"),
+                      ("FFN kernel (csrc/ffn.cu)", "ffn_kernel")):
+        mine = [e for e in kernels if key in e.key]
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            log(f"[{tag}] {what}: {ms:.2f} ms over "
+                f"{sum(e.count for e in mine)} launches, "
+                f"{ms / busy_ms:.3f} of device busy")
 
 
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",

@@ -33,6 +33,16 @@ from gstx_torch.kernels import build
 # kernel launches per wrapper since the last reset_launches()
 launches = {"fused_dense_ln": 0, "fused_ffn": 0}
 
+# the H100 SXM's streaming multiprocessors: one FFN CTA runs on each
+SM_COUNT = 132
+
+
+def ffn_block_rows(m, d):
+    """Rows per CTA of the FFN kernel for an [m, d] input: 64 where the
+    [64, d] f32 accumulator fits the register file (d <= 768) and 64-row
+    blocks fill the card at least once (m >= 64 * SM_COUNT), else 32."""
+    return 64 if d <= 768 and m >= 64 * SM_COUNT else 32
+
 
 def reset_launches():
     for k in launches:
@@ -87,7 +97,7 @@ def _check_cuda(name, dev, bf16=(), f32=()):
 
 
 def _check_width(name, d, k, k_max):
-    # a CTA keeps whole output rows as 8 warps x NT 16-column tiles
+    # a CTA keeps whole output rows, 8 column warps of D / 8 columns
     # (D = 128 * NT, NT <= 8); the FFN walks F in 128-column chunks and
     # dense_ln stages a [32, K] x block in shared memory beside the rows
     if d % 128 or not 0 < d <= 1024 or k % 128 or not 0 < k <= k_max:
@@ -155,6 +165,6 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
         build.check(lib.gstx_ffn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, d, f, float(eps), stream), "fused_ffn")
+            m, d, f, ffn_block_rows(m, d), float(eps), stream), "fused_ffn")
         launches["fused_ffn"] += 1
     return out

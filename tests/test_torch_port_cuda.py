@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from gstx_torch.kernels import attention as kattn
+from gstx_torch.kernels import build
 from gstx_torch.kernels import decode_attn as kdecode
 from gstx_torch.kernels import ffn as kffn
 
@@ -61,11 +62,49 @@ def test_dense_ln_kernel_matches_plain(dev, m, k, d):
     _close(kffn.fused_dense_ln(*args), kffn.dense_ln_plain(*args))
 
 
-@pytest.mark.parametrize("m,d,f", [(70, 256, 1024), (33, 768, 3072),
-                                   (17, 1024, 1024), (5, 128, 128)])
+# the text FFN across the block-row rule (64 x 132 rows) and the block
+# edges; the visual FFN as the engine calls it; one and two F chunks
+FFN_SHAPES = [(70, 256, 1024), (33, 768, 3072), (17, 1024, 1024),
+              (5, 128, 128), (63, 768, 3072), (64, 768, 3072),
+              (65, 768, 3072), (8448, 768, 3072), (8449, 768, 3072),
+              (3552, 1024, 1024), (40, 256, 128), (100, 768, 256),
+              (8500, 256, 512)]
+
+
+@pytest.mark.parametrize("m,d,f", FFN_SHAPES, ids=str)
 def test_ffn_kernel_matches_plain(dev, m, d, f):
     args = _ffn_args(dev, m, d, f)
     _close(kffn.fused_ffn(*args), kffn.ffn_plain(*args))
+
+
+def _ffn_entry(args, bm):
+    """The C entry at a given number of rows per CTA (fused_ffn takes
+    ffn_block_rows'); returns the output, or raises on the entry's error."""
+    x, w1, b1, w2, b2, g, be = args
+    out = torch.empty_like(x)
+    m, d = x.shape
+    build.check(build.library().gstx_ffn(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), g.data_ptr(), be.data_ptr(), out.data_ptr(), m, d,
+        w1.shape[0], bm, 1e-12, torch.cuda.current_stream().cuda_stream),
+        "gstx_ffn")
+    return out
+
+
+@pytest.mark.parametrize("bm", [32, 64])
+@pytest.mark.parametrize("m,d,f", [(130, 768, 384), (97, 128, 256),
+                                   (1, 640, 128)], ids=str)
+def test_ffn_kernel_both_block_rows_match_plain(dev, m, d, f, bm):
+    args = _ffn_args(dev, m, d, f)
+    _close(_ffn_entry(args, bm), kffn.ffn_plain(*args))
+
+
+def test_ffn_entry_refuses_64_rows_past_768_columns(dev):
+    args = _ffn_args(dev, 8, 1024, 128)
+    with pytest.raises(RuntimeError):
+        _ffn_entry(args, 64)
+    with pytest.raises(RuntimeError):
+        _ffn_entry(args, 48)
 
 
 def test_launch_counter_counts_each_launch(dev):
