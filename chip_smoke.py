@@ -4,8 +4,9 @@
   phase 1  the card: its name and power limit (nvidia-smi), and the build of
            the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a):
            ptxas's registers and spills per kernel, and a cuobjdump SASS
-           census of the attention and FFN kernels (a bf16 attention or an
-           FFN instance without HMMA and LDGSTS instructions fails);
+           census of the attention, dense_ln and FFN kernels (a bf16
+           attention, a dense_ln or an FFN instance without HMMA and LDGSTS
+           instructions fails);
   phase 2  each kernel against its plain PyTorch version at every shape
            the main paths give it plus a ragged one (and, for attention,
            K/V views whose rows past Lk hold NaN): bf16 fused_dense_ln,
@@ -143,13 +144,14 @@ def demangle(names):
 
 def build_census(build):
     """Phase 1: ptxas's registers and spills for every kernel, and the
-    attention and FFN kernels' instructions in the built library's SASS:
-    tensor-core products (HMMA), asynchronous copies (LDGSTS), ldmatrix
-    (LDSM) and f32 FMAs (FFMA).  Fails if a bf16 (mma_attention_kernel) or
-    an ffn_kernel instance has no HMMA or no LDGSTS."""
+    attention, dense_ln and FFN kernels' instructions in the built
+    library's SASS: tensor-core products (HMMA), asynchronous copies
+    (LDGSTS), ldmatrix (LDSM) and f32 FMAs (FFMA).  Fails if a bf16
+    (mma_attention_kernel), a dense_ln_kernel or an ffn_kernel instance has
+    no HMMA or no LDGSTS."""
     text = "\n".join(build.build_log)
     segs = re.split(r"Compiling entry function '", text)[1:]
-    ffn_spills = []
+    spills = {"dense_ln_kernel": [], "ffn_kernel": []}
     for name, seg in zip(demangle([g.split("'")[0] for g in segs]), segs):
         regs = re.search(r"Used (\d+) registers", seg)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -157,14 +159,16 @@ def build_census(build):
         log(f"[phase 1] ptxas {name}: "
             f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
             f"{'/'.join(spill.groups()) if spill else '?'} bytes")
-        if "ffn_kernel" in name and spill:
-            ffn_spills.append(int(spill.group(1)) + int(spill.group(2)))
+        for kernel, found in spills.items():
+            if kernel in name and spill:
+                found.append(int(spill.group(1)) + int(spill.group(2)))
     if not segs:
         log("[phase 1] ptxas: no build log (library cached); not measured")
-    elif ffn_spills:
-        log(f"[phase 1] ptxas ffn_kernel: {len(ffn_spills)} instances, "
-            f"{sum(s > 0 for s in ffn_spills)} with spills (most "
-            f"{max(ffn_spills)} bytes stored + loaded)")
+    for kernel, found in spills.items():
+        if found:
+            log(f"[phase 1] ptxas {kernel}: {len(found)} instances, "
+                f"{sum(s > 0 for s in found)} with spills (most "
+                f"{max(found)} bytes stored + loaded)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[phase 1] SASS census: no cuobjdump; not measured")
@@ -173,13 +177,15 @@ def build_census(build):
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     blocks = [b for b in sass.split("Function : ")[1:]
-              if re.search(r"attention_kernel|ffn_kernel", b.split()[0])]
+              if re.search(r"attention_kernel|ffn_kernel|dense_ln_kernel",
+                           b.split()[0])]
     for name, block in zip(demangle([b.split()[0] for b in blocks]), blocks):
         counts = {op: len(re.findall(rf"\b{op}\b", block))
                   for op in ("HMMA", "LDGSTS", "LDSM", "FFMA")}
         log(f"[phase 1] SASS {name}: " + ", ".join(
             f"{op} {n}" for op, n in counts.items()))
-        if re.search(r"mma_attention_kernel|ffn_kernel", name) and \
+        if re.search(r"mma_attention_kernel|ffn_kernel|dense_ln_kernel",
+                     name) and \
                 not (counts["HMMA"] and counts["LDGSTS"]):
             raise AssertionError(f"{name}: no tensor-core or cp.async "
                                  "instruction in its SASS")
@@ -192,6 +198,27 @@ def make_randn(torch, gen):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale
                 + shift).to(dtype)
     return randn
+
+
+# (label, M, K, D): the attention-output projections and BiOutput as the
+# encoder calls fused_dense_ln (B = 96), a ragged M, and the text ones at
+# the context buckets 128 and 192
+DENSE_LN_SHAPES = [("text 24576x768->768", 24576, 768, 768),
+                   ("visual/BiOutput-v 3552x1024->1024", 3552, 1024, 1024),
+                   ("BiOutput-t 24576x1024->768", 24576, 1024, 768),
+                   ("ragged 1000x768->768", 1000, 768, 768),
+                   ("text ctx128 12288x768->768", 12288, 768, 768),
+                   ("text ctx192 18432x768->768", 18432, 768, 768)]
+
+
+def dense_ln_inputs(torch, randn, m, k, d):
+    """x, w, b, residual, gamma, beta for fused_dense_ln."""
+    f32 = torch.float32
+    x, res = randn(m, k), randn(m, d)
+    w, b = randn(d, k, scale=0.02), randn(d, scale=0.02, dtype=f32)
+    g, be = randn(d, scale=0.1, shift=1.0, dtype=f32), \
+        randn(d, scale=0.1, dtype=f32)
+    return x, w, b, res, g, be
 
 
 # (label, M, D, F): the text FFN at each context bucket (B = 96) and the
@@ -235,18 +262,13 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         return float(err.max())
 
     entries = []
-    # (label, M, K, D): attention-output projections and BiOutput
-    dense_ln_shapes = [("text 24576x768->768", 24576, 768, 768),
-                       ("visual/BiOutput-v 3552x1024->1024", 3552, 1024, 1024),
-                       ("BiOutput-t 24576x1024->768", 24576, 1024, 768),
-                       ("ragged 1000x768->768", 1000, 768, 768)]
+    # the context-bucket shapes draw from a generator of their own, so the
+    # other rows' inputs stay those of earlier runs
+    own_ln = make_randn(torch, torch.Generator(device=dev).manual_seed(5))
     rows = []
-    for label, m, k, d in dense_ln_shapes:
-        x, res = randn(m, k), randn(m, d)
-        w, b = randn(d, k, scale=0.02), randn(d, scale=0.02, dtype=f32)
-        g, be = randn(d, scale=0.1, shift=1.0, dtype=f32), \
-            randn(d, scale=0.1, dtype=f32)
-        args = (x, w, b, res, g, be)
+    for i, (label, m, k, d) in enumerate(DENSE_LN_SHAPES):
+        args = dense_ln_inputs(torch, randn if i < 4 else own_ln, m, k, d)
+        x, w, b, res, g, be = args
         err = held("fused_dense_ln", label, kffn.fused_dense_ln(*args),
                    kffn.dense_ln_plain(*args))
         b16, g16, be16 = b.to(bf), g.to(bf), be.to(bf)
@@ -258,7 +280,8 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         rows.append(dict(shape=label, max_abs_err=err,
                          ms=time_ms(lambda: kffn.fused_dense_ln(*args)),
                          plain_ms=time_ms(lambda: kffn.dense_ln_plain(*args)),
-                         bound_ms=bms, bound_by=by, library_ms=lib))
+                         bound_ms=bms, bound_by=by, library_ms=lib,
+                         block_rows=kffn.block_rows(m, d)))
         log(f"[phase 2] fused_dense_ln {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_dense_ln", "gstx/kernels/ffn.py:254", rows))
 
@@ -282,7 +305,7 @@ def kernel_phase(torch, kffn, kattn, kdecode):
                          ms=time_ms(lambda: kffn.fused_ffn(*args)),
                          plain_ms=time_ms(lambda: kffn.ffn_plain(*args)),
                          bound_ms=bms, bound_by=by, library_ms=lib,
-                         block_rows=kffn.ffn_block_rows(m, d)))
+                         block_rows=kffn.block_rows(m, d)))
         log(f"[phase 2] fused_ffn {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_ffn", "gstx/kernels/ffn.py:198", rows))
     entries += attention_rows(torch, F, kattn, randn, held)
@@ -764,6 +787,7 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
             f"{e.count:7d}x  {e.key[:90]}")
     for what, key in (("attention kernels (csrc/attention.cu)",
                        "attention_kernel"),
+                      ("dense_ln kernel (csrc/ffn.cu)", "dense_ln_kernel"),
                       ("FFN kernel (csrc/ffn.cu)", "ffn_kernel")):
         mine = [e for e in kernels if key in e.key]
         if mine:

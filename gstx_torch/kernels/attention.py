@@ -103,6 +103,13 @@ def max_key_length(dh: int, dtype: torch.dtype) -> int:
     return (rows - _PAD) // 32 * 32
 
 
+def attention_takes(dh: int, lk: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes a head width ``dh`` and ``lk`` keys in
+    ``dtype``: the gate's predicate, which the launch raises by."""
+    return dtype in (torch.bfloat16, torch.float32) and \
+        dh in _HEAD_DIMS and 0 < lk <= max_key_length(dh, dtype)
+
+
 def _launch(name, q, k, v, mask, round_probs):
     """Validate what the kernel takes, raise on anything else, launch."""
     if torch.is_grad_enabled() and any(
@@ -120,11 +127,10 @@ def _launch(name, q, k, v, mask, round_probs):
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share bf16 or f32; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head width {dh} not in {_HEAD_DIMS}")
-    if not 0 < lk <= max_key_length(dh, q.dtype):
-        raise ValueError(f"{name}: Lk={lk} outside "
-                         f"1..{max_key_length(dh, q.dtype)}")
+    if not attention_takes(dh, lk, q.dtype):
+        raise ValueError(f"{name}: needs a head width in {_HEAD_DIMS} and "
+                         f"Lk in 1..{max_key_length(dh, q.dtype)}; got "
+                         f"dh={dh}, Lk={lk}")
     # 16-byte loads (cp.async for bf16, float4 for f32): unit last stride,
     # batch, head and row strides of whole 16-byte vectors, aligned base
     vec = 16 // q.element_size()
@@ -201,11 +207,16 @@ def maybe_fused_attention(q, k, v, mask) -> Optional[torch.Tensor]:
     unfused ops).  The conditions of ``attention.py:221-235``, in order,
     without its TPU test: the switch is on; attention dropout is inactive
     (always, the port's forward is deterministic); Lq >= 8 (decode steps are
-    too small to gain); the mask carries q's batch."""
+    too small to gain); the mask carries q's batch.  Then the kernel's own
+    limits (:func:`attention_takes`), where the reference pads dh and Lk
+    instead (``attention.py:78-100``): the unfused ops compute the same
+    function."""
     if not _ENABLED:
         return None
     if q.shape[2] < 8:
         return None
     if mask is not None and mask.shape[0] != q.shape[0]:
+        return None
+    if not attention_takes(q.shape[-1], k.shape[2], q.dtype):
         return None
     return fused_attention(q, k, v, mask)

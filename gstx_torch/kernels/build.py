@@ -97,7 +97,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gstx_dense_ln.argtypes = [ptr] * 7 + [i32, i32, i32, f32, ptr]
+        lib.gstx_dense_ln.argtypes = [ptr] * 7 + [i32, i32, i32, i32, f32, ptr]
         lib.gstx_dense_ln.restype = i32
         lib.gstx_ffn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, f32, ptr]
         lib.gstx_ffn.restype = i32

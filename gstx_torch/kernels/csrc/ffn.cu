@@ -10,50 +10,56 @@
 // hidden rounded to bf16 before the second product (ffn.py:224), output
 // rounded to bf16 once.
 //
-// What bounds them on an H100: tensor-core operations.  At the encoder's
-// shapes (M = B*S up to 24,576 rows, D = 768 or 1024, F = 3,072) a text-FFN
-// call is 232 GFLOP against ~0.1 GB of compulsory traffic, far above the
-// card's ~295 FLOP/byte balance point; dense_ln sits near it.  Both keep the
-// LayerNorm's whole row in one CTA, so every output element is written once,
-// and the FFN keeps its [M, F] hidden on chip.
+// What bounds them on an H100: at the encoder's shapes (M = B*S up to
+// 24,576 rows, D = 768 or 1024, F = 3,072) a text-FFN call is 232 GFLOP
+// against ~0.1 GB of compulsory traffic, far above the card's ~295
+// FLOP/byte balance point: operations.  dense_ln sits near that point
+// (29 GFLOP against ~0.11 GB at 24,576 x 768 -> 768: bytes; operations at
+// an inner width of 1,024).  Both keep the LayerNorm's whole row in one
+// CTA, so every output element is written once, and the FFN keeps its
+// [M, F] hidden on chip.
 //
-// dense_ln_kernel (the first design): bf16 WMMA 16x16x16 fragments with f32
-// accumulators; BM = 32 rows per CTA, the x block staged once in shared
-// memory, W read as fragments straight from global memory (L2-resident),
-// the accumulator rows staged through shared memory for the LayerNorm.  The
-// per-CTA weight reads from L2 bound it.
-//
-// ffn_kernel: mma.sync m16n8k16 (bf16 in, f32 accumulation) fed by one
-// cp.async weight ring that all 16 warps of the CTA share.  The first design
-// (wmma fragments straight from global memory, two warps loading each weight
-// fragment, nothing pipelined) took 4.31 ms at the text shape on an H100 SXM
-// at 700 W, 18x its bound: about 14.5 TB of weight reads through L2 per
-// call.  Now:
+// Both kernels share one design: mma.sync m16n8k16 (bf16 in, f32
+// accumulation) fed by one cp.async ring of tiles that all 16 warps of the
+// CTA share.  The first designs (wmma fragments straight from global
+// memory, nothing pipelined) took 4.31 ms (FFN) and 0.637 ms (dense_ln) at
+// the text shape on an H100 SXM at 700 W, 18x their bounds: every CTA
+// pulled every weight fragment from L2 on its own.  Now:
 //   * a CTA owns BM = 64 rows (32 for D > 768, or where 64-row blocks would
-//     not fill the card once: ffn_block_rows in ffn.py), 16 warps, one CTA
-//     per SM.  Its [BM, D] f32 accumulator stays in registers across the
-//     whole F loop: warps 2 x 8, each (BM/2) rows x D/8 columns, 96
+//     not fill the card once: block_rows in ffn.py), 16 warps, one CTA per
+//     SM.  Its [BM, D] f32 accumulator stays in registers across the whole
+//     inner loop: warps 2 x 8, each (BM/2) rows x D/8 columns, 96
 //     registers a thread at BM = 64, D = 768;
-//   * the x block is staged once (cp.async, zero-filled past M) and is both
-//     the first product's A operand and the residual;
-//   * F is walked in chunks of FC = 128 hidden columns.  Every CTA walks one
-//     sequence of weight tiles of about equal size: per chunk, KS = 8 tiles
-//     of W1 ([FC rows, D/8 columns]) and then KS of W2 ([D rows, 16
-//     columns]).  The tiles stream through a 4-stage ring in steps of two
-//     tiles (one step in flight beside the one in use), one commit group and
-//     one barrier a step.  Each weight byte crosses from L2 to the SM once
-//     per CTA: ~3.6 TB per call at the text shape;
-//   * GEMM1 makes the chunk's [BM, FC] hidden (warp tiles 16 x FC*BM/256) in
-//     registers; + b1, erf GELU in f32 and the rounding to bf16 put it in
-//     shared memory, where GEMM2 reads it as A fragments.  GEMM2 accumulates
-//     over F in chunk order;
-//   * operands come through ldmatrix from rows padded by 16 bytes (W2 tile
-//     rows, two 16-byte chunks, swap them in rows 4-7 of every 8 instead),
-//     so the 8 rows of one ldmatrix matrix lie in distinct banks;
+//   * tiles stream through a 4-stage ring in steps of two tiles (one step
+//     in flight beside the one in use), one commit group and one barrier a
+//     step.  Each weight byte crosses from L2 to the SM once per CTA;
+//   * operands come through ldmatrix.  Rows of 32 bytes (two 16-byte
+//     chunks) swap their chunks in rows 4-7 of every 8, and longer rows are
+//     padded by 16 bytes, so the 8 rows of one ldmatrix matrix lie in
+//     distinct banks;
 //   * the LayerNorm runs from the registers: row sums over each warp's
 //     columns by quad shuffles, the 8 column warps' partial sums through
 //     shared memory (the free ring), mean, then the centred variance, and
 //     bf16 stores straight from the registers.
+//
+// dense_ln_kernel: K is walked in 16-column tiles; a ring stage holds the
+// W tile [D, 16] and the x tile [BM, 16] (zero-filled past M), so K has no
+// limit.  The accumulator starts at bias + residual, read from global
+// memory while the first tiles are in flight, and gamma and beta wait in
+// shared memory, so the epilogue holds nothing beside the accumulator (no
+// spills).  At the text shape each CTA streams the 1.18 MB W from L2 once:
+// ~0.45 GB per call.
+//
+// ffn_kernel: the x block is staged once (cp.async, zero-filled past M) and
+// is both the first product's A operand and the residual.  F is walked in
+// chunks of FC = 128 hidden columns.  Every CTA walks one sequence of
+// weight tiles of about equal size: per chunk, KS = 8 tiles of W1 ([FC
+// rows, D/8 columns], rows padded) and then KS of W2 ([D rows, 16
+// columns]): ~3.6 GB of L2 -> SM traffic per call at the text shape.
+// GEMM1 makes the chunk's [BM, FC] hidden (warp tiles 16 x FC*BM/256) in
+// registers; + b1, erf GELU in f32 and the rounding to bf16 put it in
+// shared memory, where GEMM2 reads it as A fragments.  GEMM2 accumulates
+// over F in chunk order.
 // What holds it at about 6x its bound (1.36 ms at the text shape on an H100
 // SXM at 700 W; PERF.md): the ring alone, with no math, takes 0.83 ms (the
 // L2 -> SM stream at ~4.3 TB/s), the math alone 0.87 ms (266 TFLOP/s, a
@@ -69,135 +75,25 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 32;      // dense_ln rows per CTA: two 16-row tiles
-constexpr int THREADS = BM / 16 * 256;  // 8 warps per row tile
-constexpr int XPAD = 8;     // bf16 elements of padding per staged x row
-constexpr int YPAD = 4;     // f32 elements of padding per accumulator row
+constexpr int THREADS = 512;        // 16 warps: 2 x 8 over the output block
 constexpr int SMEM_LIMIT = 232448;  // opt-in dynamic shared memory per block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// Copy rows [row0, row0 + BM) of a [M, K] bf16 matrix into shared memory
-// (row stride K + XPAD), zero-filling rows at or past M.  16 bytes a thread.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src,
-                                           int row0, int M, int K) {
-  const int vec_per_row = K / 8;
-  for (int i = threadIdx.x; i < BM * vec_per_row; i += blockDim.x) {
-    const int r = i / vec_per_row;
-    const int c = (i - r * vec_per_row) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < M)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * K + c);
-    *reinterpret_cast<uint4*>(dst + r * (K + XPAD) + c) = v;
-  }
-}
-
-// LayerNorm epilogue over the f32 rows ys[BM][D + YPAD] (the product
-// without bias): v = y + bias + residual, then two-pass mean / variance with
-// warp reductions, one warp per row.  The residual is bf16, either in
-// shared memory (stride res_ld) or in global memory.
-template <int D>
-__device__ __forceinline__ void layer_norm_rows(
-    float* ys, const float* __restrict__ bias, const bf16* res, int res_ld,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    bf16* __restrict__ out, int row0, int M, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int r = warp; r < BM; r += nwarps) {
-    const int gr = row0 + r;
-    if (gr >= M) break;  // rows ascend with r: the ragged tail is masked
-    float* y = ys + r * (D + YPAD);
-    const bf16* rr = res + (size_t)r * res_ld;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = y[c] + bias[c] + __bfloat162float(rr[c]);
-      y[c] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) * (1.0f / D);
-    float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = y[c] - mean;
-      q += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(q) * (1.0f / D) + eps);
-    bf16* o = out + (size_t)gr * D;
-    for (int c = lane; c < D; c += 32)
-      o[c] = __float2bfloat16((y[c] - mean) * inv * gamma[c] + beta[c]);
-  }
-}
-
-// Replaces _dense_ln_pallas (gstx/kernels/ffn.py:254).  Bound on the card:
-// bytes at the text shape (24,576 x 768 -> 768), operations at the others;
-// in this form the per-CTA weight reads from L2 bound it instead.
-// BM rows per CTA, 8 warps per 16-row tile; warp w owns row tile w / 8 and
-// the NT consecutive 16-column tiles starting at column (w % 8) * NT * 16,
-// so D = NT * 128.
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const float* __restrict__ b, const bf16* __restrict__ res,
-                const float* __restrict__ gamma, const float* __restrict__ beta,
-                bf16* __restrict__ out, int M, int K, float eps) {
-  constexpr int D = NT * 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                                 // [BM][K + XPAD]
-  float* ys = reinterpret_cast<float*>(smem + (size_t)BM * (K + XPAD) * 2);  // [BM][D + YPAD]
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int rt = warp / 8;
-  const int col0 = (warp % 8) * NT * 16;
-
-  stage_rows(xs, x, row0, M, K);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-  const bf16* xa = xs + rt * 16 * (K + XPAD);
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(a, xa + k, K + XPAD);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      // W is [D, K] row-major, i.e. W^T column-major with leading dim K
-      wmma::load_matrix_sync(bw, w + (size_t)(col0 + j * 16) * K + k, K);
-      wmma::mma_sync(acc[j], a, bw, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    wmma::store_matrix_sync(ys + rt * 16 * (D + YPAD) + col0 + j * 16, acc[j],
-                            D + YPAD, wmma::mem_row_major);
-  __syncthreads();
-  layer_norm_rows<D>(ys, b, res + (size_t)row0 * D, D, gamma, beta, out,
-                     row0, M, eps);
-}
-
 // ---------------------------------------------------------------------------
 // ffn_kernel: mma.sync fed by one cp.async weight ring
 
-constexpr int FFN_THREADS = 512;  // 16 warps
 constexpr int F_ALIGN = 128;      // F % F_ALIGN == 0: whole chunks at every FC
 
 template <int NT, int ROWS>
@@ -263,6 +159,7 @@ struct Place {
   // rows (W2's with the chunk swap of rows 4-7 of every 8)
   __device__ __forceinline__ int a_row() const { return lane & 15; }
   __device__ __forceinline__ int a_col() const { return (lane >> 4) * 8; }
+  __device__ __forceinline__ int a2_col() const { return a_col() ^ ((lane >> 2) & 1) * 8; }
   __device__ __forceinline__ int b_row() const { return (lane & 7) + ((lane >> 4) << 3); }
   __device__ __forceinline__ int b_col() const { return ((lane >> 3) & 1) * 8; }
   __device__ __forceinline__ int b2_col() const { return b_col() ^ ((lane >> 2) & 1) * 8; }
@@ -280,13 +177,13 @@ __device__ __forceinline__ void load_weight_tile(bf16* dst, const bf16* __restri
   if (s < S::KS) {
     constexpr int CPR = S::KC1 / 8;  // 16-byte chunks per row
     const bf16* src = w1 + (size_t)f0 * S::D + s * S::KC1;
-    for (int i = thread_x(); i < S::FC * CPR; i += FFN_THREADS) {
+    for (int i = thread_x(); i < S::FC * CPR; i += THREADS) {
       const int r = i / CPR, c = (i - r * CPR) * 8;
       cp_async16(smem_addr(dst + r * S::LD1 + c), src + (size_t)r * S::D + c, true);
     }
   } else {
     const bf16* src = w2 + f0 + (s - S::KS) * 16;
-    for (int i = thread_x(); i < S::D * 2; i += FFN_THREADS) {
+    for (int i = thread_x(); i < S::D * 2; i += THREADS) {
       const int r = i >> 1, c = i & 1;
       cp_async16(smem_addr(dst + r * 16 + (c ^ ((r >> 2) & 1)) * 8), src + (size_t)r * F + c * 8,
                  true);
@@ -323,7 +220,7 @@ __device__ __forceinline__ void ring_step(bf16* ring, const bf16* __restrict__ w
 // Replaces _ffn_pallas (gstx/kernels/ffn.py:198).  Bound on the card:
 // operations (232 GFLOP at the text shape).  ROWS rows per CTA, D = NT * 128.
 template <int NT, int ROWS>
-__global__ void __launch_bounds__(FFN_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
            const float* __restrict__ b1, const bf16* __restrict__ w2,
            const float* __restrict__ b2, const float* __restrict__ gamma,
@@ -342,7 +239,7 @@ ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   // weight tiles; then the steps up to STAGES / GROUP - 2
   {
     constexpr int CPR = D / 8;
-    for (int i = threadIdx.x; i < ROWS * CPR; i += FFN_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
       const int r = i / CPR, c = (i - r * CPR) * 8;
       const bool valid = row0 + r < M;
       cp_async16(smem_addr(xs + r * S::LDX + c), x + (size_t)(valid ? row0 + r : 0) * D + c,
@@ -514,19 +411,228 @@ ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
 }
 
-template <int NT>
-cudaError_t launch_dense_ln(const bf16* x, const bf16* w, const float* b,
-                            const bf16* res, const float* g, const float* be,
-                            bf16* out, int M, int K, float eps, cudaStream_t s) {
-  constexpr int D = NT * 128;
-  const size_t smem = (size_t)BM * (K + XPAD) * 2 + (size_t)BM * (D + YPAD) * 4;
-  cudaError_t e = cudaFuncSetAttribute(dense_ln_kernel<NT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  dense_ln_kernel<NT><<<(M + BM - 1) / BM, THREADS, smem, s>>>(
-      x, w, b, res, g, be, out, M, K, eps);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// dense_ln_kernel: x and W tiles through one cp.async ring
+
+template <int NT, int ROWS>
+struct DenseLnShape {
+  static constexpr int D = NT * 128;
+  static constexpr int STAGES = 4;  // ring stages, in steps of GROUP tiles:
+  static constexpr int GROUP = 2;   //   one commit group and one barrier a step
+  // a stage: the W tile [D][16], then the x tile [ROWS][16]; 32-byte rows
+  // whose two 16-byte chunks swap in rows 4-7 of every 8
+  static constexpr int W_TILE = D * 16;
+  static constexpr int STAGE = W_TILE + ROWS * 16;  // elements
+  // warps 2 x 8, each (ROWS/2) x (D/8): MT m16 tiles and 2 NT n8 tiles
+  static constexpr int MT = ROWS / 32;
+  static constexpr size_t RING = sizeof(bf16) * STAGES * STAGE;  // bytes
+  static constexpr size_t SMEM = RING + 2 * D * sizeof(float);     // + gamma, beta
+  static_assert(STAGES % GROUP == 0 && STAGES / GROUP >= 2, "a step in flight beside the one in use");
+  static_assert(ROWS == 32 || ROWS == 64, "32 or 64 rows per CTA");
+  static_assert(2 * ROWS * 8 * sizeof(float) <= RING, "the LayerNorm's partial sums fit the ring");
+  static_assert(SMEM <= (size_t)SMEM_LIMIT, "shared memory");
+};
+
+// Tile `tile` (K columns 16 tile + [0, 16)) of W's D rows and of x's rows
+// row0 + [0, ROWS), zero-filled past M, into one ring stage.
+template <class S, int ROWS>
+__device__ __forceinline__ void load_dense_ln_tile(bf16* dst, const bf16* __restrict__ x,
+                                                   const bf16* __restrict__ w, int row0, int M,
+                                                   int K, int tile) {
+  const int k0 = tile * 16;
+  for (int i = thread_x(); i < S::D * 2; i += THREADS) {
+    const int r = i >> 1, c = i & 1;
+    cp_async16(smem_addr(dst + r * 16 + (c ^ ((r >> 2) & 1)) * 8), w + (size_t)r * K + k0 + c * 8,
+               true);
+  }
+  const int i = thread_x();
+  if (i < ROWS * 2) {
+    const int r = i >> 1, c = i & 1;
+    const bool valid = row0 + r < M;
+    cp_async16(smem_addr(dst + S::W_TILE + r * 16 + (c ^ ((r >> 2) & 1)) * 8),
+               x + (size_t)(valid ? row0 + r : 0) * K + k0 + c * 8, valid);
+  }
+}
+
+// Tiles [first, first + GROUP) into their ring stages (those past the end
+// are skipped), as one commit group.
+template <class S, int ROWS>
+__device__ __forceinline__ void dense_ln_step(bf16* ring, const bf16* __restrict__ x,
+                                              const bf16* __restrict__ w, int row0, int M, int K,
+                                              int first, int ntiles) {
+#pragma unroll
+  for (int i = 0; i < S::GROUP; ++i)
+    if (first + i < ntiles)
+      load_dense_ln_tile<S, ROWS>(ring + (first + i) % S::STAGES * S::STAGE, x, w, row0, M, K,
+                                  first + i);
+  cp_async_commit();
+}
+
+// Replaces _dense_ln_pallas (gstx/kernels/ffn.py:254).  Bound on the card:
+// bytes at the text shape (24,576 x 768 -> 768), operations at an inner
+// width of 1,024.  ROWS rows per CTA, D = NT * 128, K % 16 == 0.
+template <int NT, int ROWS>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                const float* __restrict__ bias, const bf16* __restrict__ res,
+                const float* __restrict__ gamma, const float* __restrict__ beta,
+                bf16* __restrict__ out, int M, int K, float eps) {
+  using S = DenseLnShape<NT, ROWS>;
+  constexpr int D = S::D, MT = S::MT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);                  // [STAGES][STAGE]
+  float* gb = reinterpret_cast<float*>(smem + S::RING);          // gamma [D], beta [D]
+  const int row0 = blockIdx.x * ROWS;
+  const int ntiles = K / 16;
+
+  // commit groups: the steps up to STAGES / GROUP - 2
+#pragma unroll
+  for (int i = 0; i < S::STAGES - S::GROUP; i += S::GROUP)
+    dense_ln_step<S, ROWS>(ring, x, w, row0, M, K, i, ntiles);
+
+  // the accumulator starts at bias + residual (zero past M): read once,
+  // while the first tiles are in flight, and not held beside it later
+  float acc[MT][2 * NT][4];
+  {
+    const Place<S> p;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = row0 + p.wm() * (ROWS / 2) + mt * 16 + p.g();
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        const int c = p.wn() * NT * 16 + j * 8 + 2 * p.t();
+        const float bx = bias[c], by = bias[c + 1];
+        __nv_bfloat162 r0 = __floats2bfloat162_rn(0.f, 0.f), r1 = r0;
+        if (r < M) r0 = *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)r * D + c);
+        if (r + 8 < M) r1 = *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)(r + 8) * D + c);
+        acc[mt][j][0] = bx + __low2float(r0);
+        acc[mt][j][1] = by + __high2float(r0);
+        acc[mt][j][2] = bx + __low2float(r1);
+        acc[mt][j][3] = by + __high2float(r1);
+      }
+    }
+  }
+
+  // gamma and beta into shared memory, published by the first ring step's
+  // barrier: read from global memory in the epilogue, their loads were
+  // hoisted beside the accumulator and spilled
+  for (int i = threadIdx.x; i < D; i += THREADS) {
+    gb[i] = gamma[i];
+    gb[D + i] = beta[i];
+  }
+
+#pragma unroll 1
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const Place<S> p;  // before the barrier, which hides its latency
+    if (tile % S::GROUP == 0) {
+      // wait for this step's group, let every warp see it and be done with
+      // the previous step, and refill that step's stages
+      cp_async_wait<S::STAGES / S::GROUP - 2>();
+      __syncthreads();
+      dense_ln_step<S, ROWS>(ring, x, w, row0, M, K, tile + S::STAGES - S::GROUP, ntiles);
+    }
+    const bf16* wt = ring + tile % S::STAGES * S::STAGE;
+    const bf16* xt = wt + S::W_TILE;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldmatrix_x4(a[mt], smem_addr(xt + (p.wm() * (ROWS / 2) + mt * 16 + p.a_row()) * 16 +
+                                   p.a2_col()));
+    const bf16* wb = wt + (p.wn() * NT * 16 + p.b_row()) * 16 + p.b2_col();
+#pragma unroll
+    for (int np = 0; np < NT; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, smem_addr(wb + np * 16 * 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the LayerNorm's partial sums go there
+
+  // the LayerNorm from the registers: each row's sum over this warp's
+  // columns, the quad's sum by shuffles, the 8 column warps' sums through
+  // shared memory; first the mean, subtracted in place, then the centred
+  // variance.  rs holds the partial sums of a row, then its statistic.
+  const Place<S> p;
+  const int g = p.g(), t = p.t(), wm = p.wm(), wn = p.wn();
+  float* part = reinterpret_cast<float*>(ring);  // [2][ROWS][8]
+  float rs[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    rs[mt][0] = rs[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      rs[mt][0] += acc[mt][j][0] + acc[mt][j][1];
+      rs[mt][1] += acc[mt][j][2] + acc[mt][j][3];
+    }
+  }
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    float* pp = part + pass * ROWS * 8;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = wm * (ROWS / 2) + mt * 16 + g;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v = rs[mt][i];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) pp[(r + 8 * i) * 8 + wn] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = wm * (ROWS / 2) + mt * 16 + g;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // lane t adds partial sums 2t and 2t + 1 and the quad the rest: 8
+        // loads a thread in flight beside the accumulator, not 32 (spills)
+        const float* row = pp + (r + 8 * i) * 8 + 2 * t;
+        float tot = row[0] + row[1];
+        tot += __shfl_xor_sync(0xffffffffu, tot, 1);
+        tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+        rs[mt][i] = pass == 0 ? tot * (1.0f / D) : rsqrtf(tot * (1.0f / D) + eps);
+      }
+      // pass 0: subtract the mean and sum the squares; pass 1: scale by
+      // 1 / sqrt(variance + eps), so no statistic stays live in the stores
+      const float s0 = rs[mt][0], s1 = rs[mt][1];
+      rs[mt][0] = rs[mt][1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (pass == 0) {
+            acc[mt][j][e] -= e < 2 ? s0 : s1;
+            rs[mt][e >> 1] += acc[mt][j][e] * acc[mt][j][e];
+          } else {
+            acc[mt][j][e] *= e < 2 ? s0 : s1;
+          }
+        }
+      }
+    }
+  }
+  // * gamma + beta, bf16 stores of rows below M
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = row0 + wm * (ROWS / 2) + mt * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      const int c = wn * NT * 16 + j * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(gb + c);
+      const float2 bt = *reinterpret_cast<const float2*>(gb + D + c);
+      if (r < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * D + c) =
+            pack_bf16(acc[mt][j][0] * gm.x + bt.x, acc[mt][j][1] * gm.y + bt.y);
+      if (r + 8 < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)(r + 8) * D + c) =
+            pack_bf16(acc[mt][j][2] * gm.x + bt.x, acc[mt][j][3] * gm.y + bt.y);
+    }
+  }
 }
 
 template <int NT, int ROWS>
@@ -539,8 +645,21 @@ cudaError_t launch_ffn(const bf16* x, const bf16* w1, const float* b1,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  ffn_kernel<NT, ROWS><<<(M + ROWS - 1) / ROWS, FFN_THREADS, smem, s>>>(
+  ffn_kernel<NT, ROWS><<<(M + ROWS - 1) / ROWS, THREADS, smem, s>>>(
       x, w1, b1, w2, b2, g, be, out, M, F, eps);
+  return cudaGetLastError();
+}
+
+template <int NT, int ROWS>
+cudaError_t launch_dense_ln(const bf16* x, const bf16* w, const float* b, const bf16* res,
+                            const float* g, const float* be, bf16* out, int M, int K, float eps,
+                            cudaStream_t s) {
+  const size_t smem = DenseLnShape<NT, ROWS>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(dense_ln_kernel<NT, ROWS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dense_ln_kernel<NT, ROWS><<<(M + ROWS - 1) / ROWS, THREADS, smem, s>>>(x, w, b, res, g, be, out,
+                                                                         M, K, eps);
   return cudaGetLastError();
 }
 
@@ -561,17 +680,27 @@ cudaError_t launch_ffn(const bf16* x, const bf16* w1, const float* b1,
 
 extern "C" {
 
-// D = 128 * NT with NT in 1..8; K % 16 == 0.
+// D = 128 * NT with NT in 1..8; K % 16 == 0; bm (rows per CTA) 32, or 64
+// with D <= 768.  x, w, res 16-byte aligned.
 int gstx_dense_ln(const void* x, const void* w, const void* b, const void* res,
                   const void* gamma, const void* beta, void* out, int M, int K,
-                  int D, float eps, void* stream) {
+                  int D, int bm, float eps, void* stream) {
   if (M <= 0 || K <= 0 || K % 16 != 0 || D % 128 != 0) return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)x | (uintptr_t)w | (uintptr_t)res) % 16) != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define GSTX_CALL(NT)                                                            \
-  (int)launch_dense_ln<NT>((const bf16*)x, (const bf16*)w, (const float*)b,     \
-                           (const bf16*)res, (const float*)gamma,                \
-                           (const float*)beta, (bf16*)out, M, K, eps, s)
-  switch (D / 128) { GSTX_NT_CASES(GSTX_CALL) default: break; }
+#define GSTX_CALL(NT, ROWS)                                                              \
+  (int)launch_dense_ln<NT, ROWS>((const bf16*)x, (const bf16*)w, (const float*)b,       \
+                                 (const bf16*)res, (const float*)gamma,                  \
+                                 (const float*)beta, (bf16*)out, M, K, eps, s)
+#define GSTX_CALL32(NT) GSTX_CALL(NT, 32)
+#define GSTX_CALL64(NT) GSTX_CALL(NT, 64)
+  if (bm == 32) {
+    switch (D / 128) { GSTX_NT_CASES(GSTX_CALL32) default: break; }
+  } else if (bm == 64) {
+    switch (D / 128) { GSTX_NT_CASES_6(GSTX_CALL64) default: break; }
+  }
+#undef GSTX_CALL64
+#undef GSTX_CALL32
 #undef GSTX_CALL
   return (int)cudaErrorInvalidValue;
 }

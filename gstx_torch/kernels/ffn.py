@@ -18,6 +18,8 @@ run in f32; the FFN hidden is rounded to the activation dtype before the
 second product, as the Pallas kernel does (``ffn.py:224``); the output has
 the activation dtype.
 
+:func:`widths_taken` says which widths the kernels take: the layers' gate
+declines the others, and the wrappers raise on them.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no fallback from the kernel to the plain version.  Each
 wrapper counts its kernel launches in :data:`launches`.  This serving slice
@@ -33,15 +35,29 @@ from gstx_torch.kernels import build
 # kernel launches per wrapper since the last reset_launches()
 launches = {"fused_dense_ln": 0, "fused_ffn": 0}
 
-# the H100 SXM's streaming multiprocessors: one FFN CTA runs on each
+# the H100 SXM's streaming multiprocessors: one CTA of either kernel runs
+# on each
 SM_COUNT = 132
+# a CTA keeps whole output rows in registers, 8 column warps of D / 8
+# columns (D = 128 * NT, NT <= 8)
+MAX_WIDTH = 1024
 
 
-def ffn_block_rows(m, d):
-    """Rows per CTA of the FFN kernel for an [m, d] input: 64 where the
+def block_rows(m, d):
+    """Rows per CTA of both kernels for an [m, d] output: 64 where the
     [64, d] f32 accumulator fits the register file (d <= 768) and 64-row
     blocks fill the card at least once (m >= 64 * SM_COUNT), else 32."""
     return 64 if d <= 768 and m >= 64 * SM_COUNT else 32
+
+
+def widths_taken(d, inner):
+    """Whether both kernels take an output width ``d`` and an inner width
+    ``inner`` (dense_ln's Din, the FFN's F): d % 128 == 0 up to MAX_WIDTH,
+    inner % 128 == 0 of any size (dense_ln streams x in 16-column tiles,
+    the FFN walks F in 128-column chunks).  The layers' gate and the
+    wrappers' check both use it."""
+    return d % 128 == 0 and 0 < d <= MAX_WIDTH and inner % 128 == 0 \
+        and inner > 0
 
 
 def reset_launches():
@@ -96,14 +112,12 @@ def _check_cuda(name, dev, bf16=(), f32=()):
             raise ValueError(f"{name}: bf16 tensors must be 32-byte aligned")
 
 
-def _check_width(name, d, k, k_max):
-    # a CTA keeps whole output rows, 8 column warps of D / 8 columns
-    # (D = 128 * NT, NT <= 8); the FFN walks F in 128-column chunks and
-    # dense_ln stages a [32, K] x block in shared memory beside the rows
-    if d % 128 or not 0 < d <= 1024 or k % 128 or not 0 < k <= k_max:
-        raise ValueError(f"{name}: needs D % 128 == 0, D <= 1024, inner "
-                         f"width % 128 == 0 and <= {k_max}; got D={d}, "
-                         f"inner={k}")
+def _check_width(name, d, k):
+    """Raise exactly where :func:`widths_taken` (the gate's predicate) says
+    no."""
+    if not widths_taken(d, k):
+        raise ValueError(f"{name}: needs D % 128 == 0, D <= {MAX_WIDTH} and "
+                         f"an inner width % 128 == 0; got D={d}, inner={k}")
 
 
 def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
@@ -111,7 +125,8 @@ def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
 
     x: [..., Din]; weight: [D, Din]; bias, gamma, beta: [D];
     residual: [..., D].  On CUDA: x, weight, residual bf16; bias, gamma,
-    beta f32.  Returns residual's dtype and shape."""
+    beta f32; widths that :func:`widths_taken`.  Returns residual's dtype
+    and shape."""
     if x.device.type == "cpu":
         return dense_ln_plain(x, weight, bias, residual, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -122,7 +137,7 @@ def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
             tuple(bias.shape) != (d,) or tuple(gamma.shape) != (d,) or \
             tuple(beta.shape) != (d,):
         raise ValueError("fused_dense_ln: shape mismatch")
-    _check_width("fused_dense_ln", d, din, 1024)
+    _check_width("fused_dense_ln", d, din)
     _check_cuda("fused_dense_ln", x.device, bf16=(x, weight, residual),
                 f32=(bias, gamma, beta))
     out = torch.empty_like(residual)
@@ -133,7 +148,7 @@ def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
         build.check(lib.gstx_dense_ln(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             residual.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), m, din, d, float(eps), stream),
+            out.data_ptr(), m, din, d, block_rows(m, d), float(eps), stream),
             "fused_dense_ln")
         launches["fused_dense_ln"] += 1
     return out
@@ -143,8 +158,8 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
     """``LayerNorm(x + gelu(x @ w1^T + b1) @ w2^T + b2)``.
 
     x: [..., D]; w1: [F, D]; b1: [F]; w2: [D, F]; b2, gamma, beta: [D].
-    On CUDA: x, w1, w2 bf16; b1, b2, gamma, beta f32.  Returns x's dtype
-    and shape."""
+    On CUDA: x, w1, w2 bf16; b1, b2, gamma, beta f32; widths that
+    :func:`widths_taken`.  Returns x's dtype and shape."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -154,7 +169,7 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
             tuple(b1.shape) != (f,) or tuple(b2.shape) != (d,) or \
             tuple(gamma.shape) != (d,) or tuple(beta.shape) != (d,):
         raise ValueError("fused_ffn: shape mismatch")
-    _check_width("fused_ffn", d, f, 1 << 30)
+    _check_width("fused_ffn", d, f)
     _check_cuda("fused_ffn", x.device, bf16=(x, w1, w2),
                 f32=(b1, b2, gamma, beta))
     out = torch.empty_like(x)
@@ -165,6 +180,6 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
         build.check(lib.gstx_ffn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, d, f, ffn_block_rows(m, d), float(eps), stream), "fused_ffn")
+            m, d, f, block_rows(m, d), float(eps), stream), "fused_ffn")
         launches["fused_ffn"] += 1
     return out

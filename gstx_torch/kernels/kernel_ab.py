@@ -5,7 +5,8 @@ in turns, on one CUDA card, at chip_smoke.py's phase-2 shapes.
     python3 gstx_torch/kernels/kernel_ab.py FAMILY ROOT [ROOT ...]
 
 FAMILY is ``attention`` (fused_attention and fused_attention_batch at
-ATTENTION_SHAPES) or ``ffn`` (fused_ffn at FFN_SHAPES).  Each ROOT is a
+ATTENTION_SHAPES), ``dense_ln`` (fused_dense_ln at DENSE_LN_SHAPES) or
+``ffn`` (fused_ffn at FFN_SHAPES).  Each ROOT is a
 checkout (for example the parent commit unpacked with ``git archive``).
 Each is run in its own process, in the order given (give A B B A to see the
 card's drift), and builds its own kernels from its own sources.  Every run
@@ -26,7 +27,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
-FAMILIES = ("attention", "ffn")
+FAMILIES = ("attention", "dense_ln", "ffn")
 
 
 def _chip_smoke():
@@ -46,6 +47,15 @@ def _cases(torch, cs, family, randn, gen):
             args = cs.ffn_inputs(torch, randn, m, d, f)
             yield (label, "fused_ffn", lambda a=args: kffn.fused_ffn(*a),
                    lambda a=args: kffn.ffn_plain(*a))
+        return
+    if family == "dense_ln":
+        from gstx_torch.kernels import ffn as kffn
+
+        for label, m, k, d in cs.DENSE_LN_SHAPES:
+            args = cs.dense_ln_inputs(torch, randn, m, k, d)
+            yield (label, "fused_dense_ln",
+                   lambda a=args: kffn.fused_dense_ln(*a),
+                   lambda a=args: kffn.dense_ln_plain(*a))
         return
     from gstx_torch.kernels import attention as kattn
 

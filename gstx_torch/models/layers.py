@@ -11,8 +11,9 @@ the tensors flowing through (bf16 in the engine, f32 in the tests).  A
 projection casts its weights to it and returns it (``PDense``,
 ``layers.py:125-132``).  Attention scores accumulate in f32.  At the
 fused sites (attention-output projection + LayerNorm, and the encoder FFN)
-a bf16 activation with widths divisible by 128 goes through the CUDA kernels
-of ``gstx_torch/kernels/ffn.py`` (the gate of ``maybe_fused_*``,
+a bf16 activation at widths the CUDA kernels of ``gstx_torch/kernels/ffn.py``
+take (``widths_taken``: multiples of 128, the output at most 1024 wide)
+goes through them (the gate of ``maybe_fused_*``,
 ``gstx/kernels/ffn.py:395-427``); anything else runs the unfused ops.
 :func:`attend` goes through the attention kernel of
 ``gstx_torch/kernels/attention.py`` when its switch is on (off by default,
@@ -117,11 +118,13 @@ def attend(q, k, v, mask: Optional[torch.Tensor]):
     return torch.matmul(probs, v)
 
 
-def _fusable(x, *dims) -> bool:
-    """The layer-level gate of ``maybe_fused_*``: bf16 activations and
-    widths divisible by 128 (this slice is deterministic, so the dropout
-    condition always holds)."""
-    return x.dtype == torch.bfloat16 and all(d % 128 == 0 for d in dims)
+def _fusable(x, d, inner) -> bool:
+    """The layer-level gate of ``maybe_fused_*``: bf16 activations at
+    widths the kernels take (``widths_taken``, the predicate their wrappers
+    raise by); elsewhere the caller runs the unfused ops, as the reference
+    does where its gate returns None.  This slice is deterministic, so the
+    dropout condition always holds."""
+    return x.dtype == torch.bfloat16 and kffn.widths_taken(d, inner)
 
 
 def dense_ln(x, dense: nn.Linear, ln: LayerNorm, residual):
@@ -139,7 +142,7 @@ def feed_forward(x, intermediate: nn.Linear, output: nn.Linear,
                  ln: LayerNorm, activation: str = "gelu"):
     """BertIntermediate + BertOutput: ``ln(output(act(intermediate(x))) +
     x)``, through the fused kernel when eligible."""
-    if activation == "gelu" and _fusable(x, *intermediate.weight.shape):
+    if activation == "gelu" and _fusable(x, *output.weight.shape):
         dt = x.dtype
         return kffn.fused_ffn(
             x.contiguous(), intermediate.weight.to(dt),

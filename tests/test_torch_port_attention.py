@@ -247,6 +247,18 @@ def _torch_configs(enc, dec):
             tcfg.DecoderConfig(**dataclasses.asdict(dec)))
 
 
+def _kernel_head_configs():
+    """The tiny configs with 2 heads of 16 in every attention (text, visual,
+    co-attention, decoder): a head width the CUDA kernel takes, so the gate
+    sends every eligible attention to the wrapper (its plain version on the
+    CPU).  The tiny configs' own heads of 8 and 6 it declines."""
+    enc, dec = tiny_enc_dec_configs()
+    enc = dataclasses.replace(
+        enc, num_attention_heads=2, v_hidden_size=32, v_num_attention_heads=2,
+        bi_hidden_size=32, bi_num_attention_heads=2)
+    return enc, dataclasses.replace(dec, num_attention_heads=2)
+
+
 def _count_calls(monkeypatch):
     calls = []
     real = kattn.fused_attention
@@ -265,7 +277,7 @@ def test_encoder_forward_calls_the_kernel_per_gate(monkeypatch, regions,
     attention with 8 or more query rows takes the kernel.  With 5 regions
     the visual self-attentions and the visual-query co-attentions fall
     below the gate; a decode step (one query row) never reaches it."""
-    enc, dec = _torch_configs(*tiny_enc_dec_configs())
+    enc, dec = _torch_configs(*_kernel_head_configs())
     model = GSTVisualDialog(enc, dec, device="cpu")
     calls = _count_calls(monkeypatch)
     b, s = 2, 12
@@ -286,9 +298,35 @@ def test_encoder_forward_calls_the_kernel_per_gate(monkeypatch, regions,
         kattn.enable(False)
 
 
+def test_encoder_forward_at_head_widths_the_kernel_refuses(monkeypatch):
+    """The tiny configs' heads of 8 (text) and 6 (visual, co-attention):
+    with the switch on the gate declines every attention, and the unfused
+    ops give the switch-off result."""
+    enc, dec = _torch_configs(*tiny_enc_dec_configs())
+    model = GSTVisualDialog(enc, dec, device="cpu")
+    calls = _count_calls(monkeypatch)
+    b, s, r = 2, 12, 8
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(1, enc.vocab_size, (b, s), generator=gen)
+    args = (ids, torch.rand(b, r, enc.v_feature_size, generator=gen),
+            torch.rand(b, r, 5, generator=gen), torch.zeros_like(ids),
+            torch.ones_like(ids), torch.ones(b, r))
+    with torch.no_grad():
+        want, _ = model.decode_prepare(*args)
+        kattn.enable()
+        try:
+            got, _ = model.decode_prepare(*args)
+        finally:
+            kattn.enable(False)
+    assert calls == []
+    for pair_got, pair_want in zip(got, want):
+        for g, w in zip(pair_got, pair_want):
+            assert torch.equal(g, w)
+
+
 @pytest.fixture(scope="module")
 def jax_setup():
-    enc, dec = tiny_enc_dec_configs()
+    enc, dec = _kernel_head_configs()
     params = init_tiny_params(enc, dec)
     model = GSTVisualDialog(*_torch_configs(enc, dec), device="cpu")
     model.load_state_dict(state_dict_from_jax(jax.device_get(params)),

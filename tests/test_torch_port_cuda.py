@@ -7,11 +7,13 @@ Marked ``cuda``; skipped on a machine without a card.  On the card:
 
 import pytest
 import torch
+from torch import nn
 
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import build
 from gstx_torch.kernels import decode_attn as kdecode
 from gstx_torch.kernels import ffn as kffn
+from gstx_torch.models import layers
 
 pytestmark = pytest.mark.cuda
 
@@ -62,6 +64,124 @@ def test_dense_ln_kernel_matches_plain(dev, m, k, d):
     _close(kffn.fused_dense_ln(*args), kffn.dense_ln_plain(*args))
 
 
+# dense_ln across the block-row rule (64 x 132 rows) at the text width;
+# inner widths past the first design's 1,024 limit; D = 1,024 at 32 rows
+# (the visual shape itself last)
+DENSE_LN_EDGES = [(8447, 768, 768), (8448, 768, 768), (8449, 768, 768),
+                  (100, 1152, 768), (65, 2048, 768), (33, 1152, 1024),
+                  (40, 2048, 256), (3552, 1024, 1024)]
+
+
+@pytest.mark.parametrize("m,k,d", DENSE_LN_EDGES, ids=str)
+def test_dense_ln_kernel_tiling_edges_match_plain(dev, m, k, d):
+    args = _dense_ln_args(dev, m, k, d)
+    _close(kffn.fused_dense_ln(*args), kffn.dense_ln_plain(*args))
+
+
+def _dense_ln_entry(args, bm):
+    """The C entry at a given number of rows per CTA (fused_dense_ln takes
+    block_rows'); returns the output, or raises on the entry's error."""
+    x, w, b, r, g, be = args
+    out = torch.empty_like(r)
+    m, d = r.shape
+    build.check(build.library().gstx_dense_ln(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr(), g.data_ptr(),
+        be.data_ptr(), out.data_ptr(), m, x.shape[1], d, bm, 1e-12,
+        torch.cuda.current_stream().cuda_stream), "gstx_dense_ln")
+    return out
+
+
+# (70, 48, 256): an odd number of 16-column tiles, which the entry takes
+@pytest.mark.parametrize("bm", [32, 64])
+@pytest.mark.parametrize("m,k,d", [(130, 768, 768), (97, 256, 128),
+                                   (1, 1152, 640), (70, 48, 256)], ids=str)
+def test_dense_ln_kernel_both_block_rows_match_plain(dev, m, k, d, bm):
+    args = _dense_ln_args(dev, m, k, d)
+    _close(_dense_ln_entry(args, bm), kffn.dense_ln_plain(*args))
+
+
+def test_dense_ln_entry_refuses_64_rows_past_768_columns(dev):
+    args = _dense_ln_args(dev, 8, 128, 1024)
+    with pytest.raises(RuntimeError):
+        _dense_ln_entry(args, 64)
+    with pytest.raises(RuntimeError):
+        _dense_ln_entry(args, 48)
+    with pytest.raises(RuntimeError):  # inner width not % 16
+        _dense_ln_entry(_dense_ln_args(dev, 8, 24, 128), 32)
+
+
+GATE_TOL = 3e-2  # bf16 unfused ops against a kernel: a few bf16 ulps
+
+
+def _bf16_linear(dev, gen, d_in, d_out):
+    lin = nn.Linear(d_in, d_out, device=dev)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, d_in ** -0.5, generator=gen)
+        lin.bias.normal_(0.0, 0.02, generator=gen)
+    return lin.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,inner,fused", [(1152, 1152, False),
+                                           (1024, 1152, True)], ids=str)
+def test_ffn_family_gate_on_the_card(dev, d, inner, fused):
+    """The layers at a 1,152-wide stream run the unfused ops (the kernels
+    take D <= 1,024); at D = 1,024 with an inner width of 1,152 both go
+    through the kernels.  Either way the result is the unfused ops'."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(2, 40, inner, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    xd = torch.randn(2, 40, d, generator=gen, device=dev).to(torch.bfloat16)
+    dense = _bf16_linear(dev, gen, inner, d)
+    inter, out = _bf16_linear(dev, gen, d, inner), \
+        _bf16_linear(dev, gen, inner, d)
+    ln = layers.LayerNorm(d).to(dev)
+    kffn.reset_launches()
+    with torch.no_grad():
+        y = layers.dense_ln(x, dense, ln, xd)
+        z = layers.feed_forward(xd, inter, out, ln)
+        y0 = ln(layers.linear(x, dense) + xd)
+        z0 = ln(layers.linear(nn.functional.gelu(layers.linear(xd, inter)),
+                              out) + xd)
+    assert kffn.launches == {"fused_dense_ln": int(fused),
+                             "fused_ffn": int(fused)}
+    for got, want in ((y, y0), (z, z0)):
+        if fused:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=GATE_TOL, rtol=GATE_TOL)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dh,lk,dtype", [(48, 256, torch.bfloat16),
+                                         (64, 1601, torch.float32),
+                                         (64, 256, torch.bfloat16)], ids=str)
+def test_attention_gate_on_the_card(dev, dh, lk, dtype):
+    """With the switch on, a head width of 48 and f32 keys past 1,600 at
+    dh = 64 run the unfused ops; dh = 64 with 256 bf16 keys the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(2, 3, 40, dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(2, 3, lk, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(2, 3, lk, dh, generator=gen, device=dev).to(dtype)
+    mask = torch.where(torch.rand(2, 1, 1, lk, generator=gen, device=dev)
+                       < 0.3, -10000.0, 0.0)
+    fused = kattn.attention_takes(dh, lk, dtype)
+    kattn.reset_launches()
+    kattn.enable()
+    try:
+        with torch.no_grad():
+            out = layers.attend(q, k, v, mask)
+    finally:
+        kattn.enable(False)
+    with torch.no_grad():
+        unfused = layers.attend(q, k, v, mask)
+    assert kattn.launches["fused_attention"] == int(fused)
+    if fused:
+        torch.testing.assert_close(out.float(), unfused.float(),
+                                   atol=GATE_TOL, rtol=GATE_TOL)
+    else:
+        assert torch.equal(out, unfused)
+
+
 # the text FFN across the block-row rule (64 x 132 rows) and the block
 # edges; the visual FFN as the engine calls it; one and two F chunks
 FFN_SHAPES = [(70, 256, 1024), (33, 768, 3072), (17, 1024, 1024),
@@ -79,7 +199,7 @@ def test_ffn_kernel_matches_plain(dev, m, d, f):
 
 def _ffn_entry(args, bm):
     """The C entry at a given number of rows per CTA (fused_ffn takes
-    ffn_block_rows'); returns the output, or raises on the entry's error."""
+    block_rows'); returns the output, or raises on the entry's error."""
     x, w1, b1, w2, b2, g, be = args
     out = torch.empty_like(x)
     m, d = x.shape

@@ -29,7 +29,7 @@ def emulate_ffn_kernel(x, w1, b1, w2, b2, gamma, beta, eps=1e-12, bm=None):
     warps' partial sums; the output rounded to bf16 once."""
     m, d = x.shape
     f = w1.shape[0]
-    bm = bm or kffn.ffn_block_rows(m, d)
+    bm = bm or kffn.block_rows(m, d)
     w1f, w2f = w1.float(), w2.float()
     out = []
     for r0 in range(0, m, bm):
@@ -120,11 +120,11 @@ EDGES = [(64 * 132 - 1, 768, 32), (64 * 132, 768, 64), (64 * 132 + 1, 768, 64),
 
 @pytest.mark.parametrize("m,d,rows", ENGINE + EDGES, ids=str)
 def test_ffn_block_rows(m, d, rows):
-    assert kffn.ffn_block_rows(m, d) == rows
+    assert kffn.block_rows(m, d) == rows
 
 
 def test_ffn_block_rows_fills_the_card_once():
     # where the rule takes 64 rows the grid has at least one CTA per SM
     for m in range(8000, 9000, 7):
-        if kffn.ffn_block_rows(m, 768) == 64:
+        if kffn.block_rows(m, 768) == 64:
             assert -(-m // 64) >= kffn.SM_COUNT
