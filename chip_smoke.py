@@ -46,13 +46,28 @@
            then warm-up, timed batches with counted launches, phase 4's
            breakdown for this configuration, and one batch of each
            configuration in turns (default, all kernels, all kernels,
-           default), since the host's speed drifts within a run.  The two
-           profiled rounds come last: engine timings taken after a profiled
-           round ran 26-50% slower for the rest of the run.
+           default), since the host's speed drifts within a run;
+  phase 6  the port's generation CLI (gstx_torch.cli.generate.main)
+           in-process at full width, as a user runs it: a 30,522-word
+           WordPiece vocab, a synthetic store of 200 images x 36 boxes x
+           2,048 features, 8-16-word captions, and the full-width model
+           from a seed saved as a reference .ckpt with bench.py's
+           short-answer EOS bias (+3.0 on [SEP]'s logit) so that random
+           weights end their utterances.  -mode cc12m_gen, bf16, batch 96
+           (two full batches and one of 8), buckets 128/192, 10 rounds, the
+           default sampling, -use_pallas, -host_prefetch, -pipeline 2.
+           Launches counted over the run (fused_ffn and fused_dense_ln 600
+           a batch, the rest 0); the JSON must equal main's return, hold
+           one 10-round record with finite perplexities for each
+           non-abnormal image, and the sidecar must be gone.  Prints the
+           run's img/s and generated tok/s and whether the native host
+           paths served.
 
-Prints the kernels JSON line, the card line, and last
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
-result; so does a machine without CUDA or a directory without gstx_torch.
+The two profiled rounds of phases 4 and 5 come last: engine timings taken
+after a profiled round ran 26-50% slower.  Prints the kernels JSON line,
+the card line, and last ``{"ok": true, "device": {...}}``.  Any failure
+exits non-zero with no result; so does a machine without CUDA or a
+directory without gstx_torch.
 
     python3 chip_smoke.py
 """
@@ -534,7 +549,8 @@ def report_rate(tag, outs, wall, rounds, b, t, card):
 
 def engine_phases(torch, np, counters, rounds, batches, card):
     """Phases 3-5 on one full-width model: returns the launch counts of the
-    default path (phase 3) and of the all-kernels path (phase 5)."""
+    default path (phase 3) and of the all-kernels path (phase 5), and a
+    function that runs the two profiled rounds, which come last."""
     from gstx_torch.core.config import DecoderConfig, EncoderConfig
     from gstx_torch.decode.dialog_engine import make_dialog_engine
     from gstx_torch.decode.sampler import DecodeSettings
@@ -600,17 +616,19 @@ def engine_phases(torch, np, counters, rounds, batches, card):
     counts = int8_phase(torch, model, ref, (kv32, m32), args, batch,
                         settings, engine, gen, counters, per_forward,
                         dec_cfg, batches, card)
-    # the profiled rounds last: see profile_round
     from gstx_torch.kernels import attention as kattn
     from gstx_torch.kernels import decode_attn as kdecode
 
-    profile_round(torch, model, batch, settings, card, "phase 4", False)
-    kattn.enable()
-    kdecode.enable_kernel()
-    profile_round(torch, model, batch, settings, card, "phase 5", True)
-    kattn.enable(False)
-    kdecode.enable_kernel(False)
-    return default_counts, counts
+    def profile_last():
+        """The profiled rounds, run after every timed phase: see
+        profile_round."""
+        profile_round(torch, model, batch, settings, card, "phase 4", False)
+        kattn.enable()
+        kdecode.enable_kernel()
+        profile_round(torch, model, batch, settings, card, "phase 5", True)
+        kattn.enable(False)
+        kdecode.enable_kernel(False)
+    return default_counts, counts, profile_last
 
 
 def int8_phase(torch, model, ref, ref_memory, args, batch, settings, engine,
@@ -797,6 +815,154 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
                 f"{ms / busy_ms:.3f} of device busy")
 
 
+CLI_IMAGES = 200   # two full batches of 96 and a partial one of 8
+CLI_BATCH = 96
+EOS_BIAS = 3.0     # bench.py -short_answers 1 -eos_bias 3.0
+
+
+def cli_inputs(torch, np, tmp):
+    """Phase 6's inputs in ``tmp``: a 30,522-line WordPiece vocab in
+    bert-base-uncased's layout (specials at 0 and 100-103, [unused*]
+    between, then synthetic words and ## pieces), a synthetic store of
+    CLI_IMAGES images x 36 boxes x 2,048 features, captions of 8-16 vocab
+    words with their url maps, and a full-width model from a seed saved as
+    a reference .ckpt ({"model_state_dict": ...}, f32).  Returns the CLI's
+    data flags."""
+    from gstx_torch.core.config import (SEP_ID, DecoderConfig,
+                                        EncoderConfig)
+    from gstx_torch.data.feature_store import make_synthetic_store
+    from gstx_torch.models.encdec import GSTVisualDialog
+
+    def word(i):
+        s = ""
+        while i:
+            s, i = chr(97 + i % 26) + s, i // 26
+        return s
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + \
+        ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += [("##" if i % 5 == 0 else "") + word(i)
+              for i in range(len(vocab), 30522)]
+    paths = {k: os.path.join(tmp, k) for k in
+             ("vocab.txt", "feats.store", "caps.json", "urls.json",
+              "url_caps.json", "model.ckpt")}
+    with open(paths["vocab.txt"], "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    ids = list(range(1000, 1000 + CLI_IMAGES))
+    make_synthetic_store(paths["feats.store"], ids, num_boxes=36,
+                         feat_dim=2048, num_classes=1601, seed=0)
+    rng = np.random.RandomState(0)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+    caps = [{"image_id": i, "caption": " ".join(
+        words[j] for j in rng.randint(0, len(words), rng.randint(8, 17)))}
+        for i in ids]
+    urls = {str(c["image_id"]): f"http://example.invalid/{c['image_id']}.jpg"
+            for c in caps}
+    json.dump(caps, open(paths["caps.json"], "w"))
+    json.dump(urls, open(paths["urls.json"], "w"))
+    json.dump({urls[str(c["image_id"])]: c["caption"] for c in caps},
+              open(paths["url_caps.json"], "w"))
+    model = GSTVisualDialog(EncoderConfig(), DecoderConfig(), device="cuda",
+                            seed=0)
+    with torch.no_grad():
+        # random weights never sample EOS; bench.py's short-answer bias
+        model.dec.lm_head.bias[SEP_ID] += EOS_BIAS
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in
+                                     model.state_dict().items()}},
+               paths["model.ckpt"])
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    return n_params, [
+        "-vocab_path", paths["vocab.txt"],
+        "-cc12m_image_feats", paths["feats.store"],
+        "-cc12m_caption", paths["caps.json"],
+        "-image_id_to_url", paths["urls.json"],
+        "-url_to_cap", paths["url_caps.json"],
+        "-start_path_q", paths["model.ckpt"],
+        "-start_path_a", paths["model.ckpt"]]
+
+
+def cli_phase(torch, np, counters, card):
+    """Phase 6: the port's generation CLI, gstx_torch.cli.generate.main,
+    in-process at full width on CLI_IMAGES images: bf16, batch 96, context
+    256, 37 regions, buckets 128/192, 10 rounds of 18 steps, the default
+    sampling (T 0.7, top-k 7, n-gram 4 for questions, fused sampler),
+    -use_pallas, -host_prefetch and -pipeline 2.  Returns its launch
+    counts (fused_ffn and fused_dense_ln 600 a batch, the rest 0)."""
+    import math
+    import tempfile
+
+    from gstx_torch import native
+    from gstx_torch.cli import generate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_params, data = cli_inputs(torch, np, tmp)
+        log(f"[phase 6] inputs written in {time.perf_counter() - t0:.2f} s "
+            f"({n_params / 1e6:.1f} M params, {CLI_IMAGES} images)")
+        out_dir = os.path.join(tmp, "out")
+        argv = data + [
+            "-mode", "cc12m_gen", "-dtype", "bfloat16",
+            "-batch_size", str(CLI_BATCH), "-max_seq_len", "256",
+            "-max_regions", "37", "-context_buckets", "128,192",
+            "-num_dialog_rounds", str(ROUNDS), "-max_dec_len", "18",
+            "-use_pallas", "-host_prefetch", "-pipeline", "2",
+            "-num_workers", "4", "-save_path", out_dir,
+            "-save_name", "dialogs.json"]
+        stats = {}
+        native.reset_served()
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = generate.main(argv, stats_out=stats, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters.read()
+        out_path = os.path.join(out_dir, "dialogs.json")
+        with open(out_path) as f:
+            written = json.load(f)
+        sidecar_left = os.path.exists(out_path + ".partial.jsonl")
+    from gstx_torch.core.config import EncoderConfig
+
+    enc = EncoderConfig()
+    batches = -(-CLI_IMAGES // CLI_BATCH)
+    # every fused site of an encoder forward, two forwards a round
+    per_batch = (enc.num_hidden_layers + enc.v_num_hidden_layers
+                 + 2 * len(enc.v_biattention_id)) * 2 * ROUNDS
+    check_launches("phase 6", counts, {
+        "fused_dense_ln": per_batch * batches,
+        "fused_ffn": per_batch * batches,
+        "fused_attention": 0, "fused_attention_batch": 0,
+        "quant_decode_attention": 0})
+    if written != records:
+        raise AssertionError("the output JSON differs from main's return")
+    if stats["images"] != CLI_IMAGES or \
+            len(records) != CLI_IMAGES - stats["abnormal"] or not records:
+        raise AssertionError(
+            f"{len(records)} records from {stats['images']} images with "
+            f"{stats['abnormal']} abnormal")
+    for rec in records:
+        if len(rec["dialog"]) != ROUNDS or not all(
+                math.isfinite(r["answer_ppl"]) for r in rec["dialog"]):
+            raise AssertionError(f"bad record {rec['image_id']}")
+    if sidecar_left:
+        raise AssertionError("the sidecar outlived the run")
+    loop = stats["loop_seconds"]
+    log(f"[phase 6] CLI cc12m_gen, {CLI_IMAGES} images in {batches} batches: "
+        f"{len(records)} records ({stats['abnormal']} abnormal dropped), "
+        f"main() {wall:.2f} s wall with loading, batch loop {loop:.2f} s: "
+        f"{stats['images'] / loop:.2f} img/s, "
+        f"{stats['tokens'] / loop:.2f} generated non-PAD tok/s "
+        f"({stats['tokens']} tokens) on {card}")
+    log(f"[phase 6] native host paths served: feature store "
+        f"{native.served['feature_store']}, tokenizer "
+        f"{native.served['wordpiece']}")
+    q = records[0]["dialog"][0]
+    log(f"[phase 6] first record: image {records[0]['image_id']}, "
+        f"q {q['question']!r}, a {q['answer']!r}, ppl {q['answer_ppl']:.2f}")
+    return counts
+
+
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
@@ -839,21 +1005,25 @@ def main():
     build_census(build)
 
     entries = kernel_phase(torch, kffn, kattn, kdecode)
-    default_counts, int8_counts = engine_phases(
-        torch, np, Counters(kffn, kattn, kdecode), ROUNDS, TIMED_BATCHES,
-        card)
+    counters = Counters(kffn, kattn, kdecode)
+    default_counts, int8_counts, profile_last = engine_phases(
+        torch, np, counters, ROUNDS, TIMED_BATCHES, card)
+    cli_counts = cli_phase(torch, np, counters, card)
+    profile_last()
 
     kernels = []
     for name, replaces, rows in entries:
         main_row = rows[0]
-        # each kernel's launches on the path that runs it: the default
-        # configuration for kernels 1-2, the all-kernels one for 3-5
+        # each kernel's launches on the path that runs it: the CLI (the
+        # main path's entry point, the default configuration) for kernels
+        # 1-2, the all-kernels engine for 3-5
         on_default = name in ("fused_dense_ln", "fused_ffn")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=replaces,
-            launches=(default_counts if on_default else int8_counts)[name],
+            launches=(cli_counts if on_default else int8_counts)[name],
             launches_by_path={"default": default_counts[name],
-                              "int8_attention": int8_counts[name]},
+                              "int8_attention": int8_counts[name],
+                              "cli": cli_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX ``gstx`` param tree to the port's state dict.
+"""Checkpoints: the weight bridge from a JAX ``gstx`` param tree to the
+port's state dict, and the loader of checkpoint files.
 
 The port's modules carry the reference PyTorch state-dict names
 (``encoder.bert_pretrained.{bert,cls}.*``, ``vlfusion.*``,
@@ -17,10 +18,14 @@ loads strictly; the bridge fills them with zeros, as the JAX converter does.
 
 Input arrays are numpy (a test calls ``jax.device_get`` on the JAX tree);
 nothing here imports JAX.
+
+:func:`load_checkpoint` reads a released reference ``.ckpt`` or the port's
+own ``torch.save`` of a state dict into a model.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict
 
@@ -165,3 +170,78 @@ def state_dict_from_jax(params: dict, with_decoder: bool = True,
 
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------- #
+# loading a checkpoint file into the port's model
+# ---------------------------------------------------------------------- #
+
+ENC_PREFIX = "encoder.bert_pretrained"
+
+
+def _strip_prefixes(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Drop DataParallel's ``module.`` wrapper (``gstx/core/checkpoint.py``
+    ``_strip_prefixes``) and bring an encoder-only checkpoint's names
+    (``bert_pretrained.*``, or a bare ``bert.*`` / ``cls.*``) under the
+    port's ``encoder.bert_pretrained.*``."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith("bert_pretrained."):
+            k = "encoder." + k
+        elif k.startswith(("bert.", "cls.")):
+            k = f"{ENC_PREFIX}.{k}"
+        out[k] = v
+    return out
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file's state dict: a released reference ``.ckpt``
+    (``{"model_state_dict": ...}``, possibly with DataParallel's
+    ``module.`` prefixes) or the port's own ``torch.save`` of a state
+    dict.  An orbax checkpoint directory of the JAX package raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX "
+            "package?); the port reads torch checkpoint files only.  "
+            "Convert it with gstx.core.checkpoint.to_torch_state_dict and "
+            "torch.save, or see ROADMAP.md (orbax checkpoints)")
+    # weights_only: tensors and plain containers, no arbitrary objects
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" in raw:
+        raw = raw["model_state_dict"]
+    return _strip_prefixes({k: torch.as_tensor(v) for k, v in raw.items()})
+
+
+def load_checkpoint(model, path: str) -> str:
+    """Load a checkpoint file (:func:`read_state_dict`) into ``model`` in
+    place and return its kind, ``"full"`` or ``"encoder"``.
+
+    A full checkpoint (one with decoder weights) loads with
+    ``strict=True``.  An encoder-only one is strict over the encoder's
+    names: every ``encoder.*`` name must be present and no name may be
+    unknown; the fusion and decoder keep their initial weights, except the
+    LM projection, seeded from the loaded word embeddings as the
+    reference's pretrained init does (``gstx/cli/common.py::load_params``).
+    """
+    sd = read_state_dict(path)
+    if any(k.startswith("decoder.") for k in sd):
+        model.load_state_dict(sd, strict=True)
+        return "full"
+    own = model.state_dict()
+    missing = sorted(k for k in own
+                     if k.startswith("encoder.") and k not in sd)
+    unknown = sorted(k for k in sd if k not in own)
+    if missing or unknown:
+        raise RuntimeError(
+            f"encoder-only checkpoint {path}: missing encoder names "
+            f"{missing[:5]}{'...' if len(missing) > 5 else ''}, unknown "
+            f"names {unknown[:5]}{'...' if len(unknown) > 5 else ''}")
+    model.load_state_dict(sd, strict=False)
+    word = model.bert.embeddings.word_embeddings.weight
+    lm = model.dec.lm_head.decoder.weight
+    if lm.shape == word.shape:
+        with torch.no_grad():
+            lm.copy_(word)
+    return "encoder"

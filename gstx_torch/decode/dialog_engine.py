@@ -97,10 +97,14 @@ def make_dialog_engine(num_rounds: int = 10,
                        device="cuda"):
     """Build the dialog-generation function.
 
-    Returns ``engine(q_model, a_model, batch, generator) -> DialogOutput``.
-    ``batch`` holds enc_input_ids, enc_segments, enc_image_feat,
-    enc_image_loc and enc_image_mask (numpy arrays or tensors);
-    ``generator`` is a ``torch.Generator`` on ``device``.  The engine moves
+    Returns ``engine(q_model, a_model, batch, generator, init_max=None)
+    -> DialogOutput``.  ``batch`` holds enc_input_ids, enc_segments,
+    enc_image_feat, enc_image_loc and enc_image_mask (numpy arrays or
+    tensors; image features and locations already in bf16 stay bf16);
+    ``generator`` is a ``torch.Generator`` on ``device``.  ``init_max``:
+    the batch's longest initial context, when the caller knows it from the
+    host batch; the bucketed engine then skips the device sync that reads
+    it (``gstx/decode/dialog_engine.py:305-311``).  The engine moves
     the models to ``device`` and casts their weights to ``dtype`` in place
     on first use (LayerNorm parameters and the LM bias stay f32).
 
@@ -194,13 +198,21 @@ def make_dialog_engine(num_rounds: int = 10,
             x = torch.from_numpy(x)
         return x.to(device=device, dtype=dt)
 
+    def _features(x):
+        # a bf16 engine's caller may hand bf16 features (the CLI casts on
+        # the host, halving the upload); the embedding casts them to the
+        # weights' dtype either way
+        if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+            return x.to(device)
+        return _tensor(x, torch.float32)
+
     @torch.no_grad()
-    def engine(q_model, a_model, batch, generator: torch.Generator
-               ) -> DialogOutput:
+    def engine(q_model, a_model, batch, generator: torch.Generator,
+               init_max=None) -> DialogOutput:
         q_model = prepare(q_model)
         a_model = q_model if a_model is q_model else prepare(a_model)
-        image = {"feat": _tensor(batch["enc_image_feat"], torch.float32),
-                 "loc": _tensor(batch["enc_image_loc"], torch.float32),
+        image = {"feat": _features(batch["enc_image_feat"]),
+                 "loc": _features(batch["enc_image_loc"]),
                  "mask": _tensor(batch["enc_image_mask"], torch.float32)}
         # cloned: the context is updated in place
         ids = _tensor(batch["enc_input_ids"], torch.long).clone()
@@ -215,8 +227,10 @@ def make_dialog_engine(num_rounds: int = 10,
             abnormal=torch.zeros(ids.shape[0], dtype=torch.bool,
                                  device=device))
         if len(buckets) > 1:
-            # one host sync up front; afterwards the schedule is static
-            init_max = int(state.enc_len.max())
+            # one host sync up front unless the caller knows the length;
+            # afterwards the schedule is static
+            if init_max is None:
+                init_max = int(state.enc_len.max())
             start = next((b for b in buckets
                           if b >= min(init_max + growth, full_s)), full_s)
             state = state._replace(

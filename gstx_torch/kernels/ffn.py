@@ -19,7 +19,9 @@ second product, as the Pallas kernel does (``ffn.py:224``); the output has
 the activation dtype.
 
 :func:`widths_taken` says which widths the kernels take: the layers' gate
-declines the others, and the wrappers raise on them.
+declines the others, and the wrappers raise on them.  The switch
+:func:`enable` (on by default) lets the layers' gate route bf16 calls to the
+kernels at all; the CLIs set it from ``-use_pallas``.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no fallback from the kernel to the plain version.  Each
 wrapper counts its kernel launches in :data:`launches`.  This serving slice
@@ -41,6 +43,24 @@ SM_COUNT = 132
 # a CTA keeps whole output rows in registers, 8 column warps of D / 8
 # columns (D = 128 * NT, NT <= 8)
 MAX_WIDTH = 1024
+
+
+# the layers' fused path: on by default, unlike the JAX package's module
+# default (off, ``gstx/kernels/ffn.py:33``), whose CLIs turn it on from
+# -use_pallas (default True) before any use.  The port's default matches
+# what its CLIs and the reference's bf16 path run.
+_ENABLED = True
+
+
+def enable(flag: bool = True):
+    """Switch the layers' fused FFN / projection-LayerNorm path on or
+    off (``gstx/kernels/ffn.py:42``); a direct wrapper call ignores it."""
+    global _ENABLED
+    _ENABLED = bool(flag)
+
+
+def is_enabled() -> bool:
+    return _ENABLED
 
 
 def block_rows(m, d):

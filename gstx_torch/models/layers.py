@@ -13,8 +13,9 @@ projection casts its weights to it and returns it (``PDense``,
 fused sites (attention-output projection + LayerNorm, and the encoder FFN)
 a bf16 activation at widths the CUDA kernels of ``gstx_torch/kernels/ffn.py``
 take (``widths_taken``: multiples of 128, the output at most 1024 wide)
-goes through them (the gate of ``maybe_fused_*``,
-``gstx/kernels/ffn.py:395-427``); anything else runs the unfused ops.
+goes through them while their switch is on (``kffn.enable``, on by
+default; the gate of ``maybe_fused_*``, ``gstx/kernels/ffn.py:395-427``);
+anything else runs the unfused ops.
 :func:`attend` goes through the attention kernel of
 ``gstx_torch/kernels/attention.py`` when its switch is on (off by default,
 as in the reference).
@@ -119,12 +120,14 @@ def attend(q, k, v, mask: Optional[torch.Tensor]):
 
 
 def _fusable(x, d, inner) -> bool:
-    """The layer-level gate of ``maybe_fused_*``: bf16 activations at
-    widths the kernels take (``widths_taken``, the predicate their wrappers
-    raise by); elsewhere the caller runs the unfused ops, as the reference
-    does where its gate returns None.  This slice is deterministic, so the
-    dropout condition always holds."""
-    return x.dtype == torch.bfloat16 and kffn.widths_taken(d, inner)
+    """The layer-level gate of ``maybe_fused_*``: the kernels' switch
+    (``kffn.enable``, set from ``-use_pallas``) first, then bf16
+    activations at widths the kernels take (``widths_taken``, the predicate
+    their wrappers raise by); elsewhere the caller runs the unfused ops, as
+    the reference does where its gate returns None.  This slice is
+    deterministic, so the dropout condition always holds."""
+    return kffn.is_enabled() and x.dtype == torch.bfloat16 \
+        and kffn.widths_taken(d, inner)
 
 
 def dense_ln(x, dense: nn.Linear, ln: LayerNorm, residual):

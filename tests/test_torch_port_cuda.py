@@ -449,3 +449,72 @@ def test_quant_decode_launch_counter_and_refusals(dev):
         kdecode.quant_decode_attention(q[..., :24].contiguous(),
                                        k[..., :24].contiguous(),
                                        v[..., :24].contiguous(), m)
+
+
+def _cli_env(tmp, width):
+    """Vocab, a synthetic store, captions and a seeded port model saved as
+    a checkpoint, at an encoder/decoder ``width`` (32: no kernel takes it;
+    128: both fused kernels do)."""
+    import json
+
+    from gstx_torch.core.config import DecoderConfig, EncoderConfig
+    from gstx_torch.data.feature_store import make_synthetic_store
+    from gstx_torch.data.tokenizer import make_test_vocab
+    from gstx_torch.models.encdec import GSTVisualDialog
+
+    words = ["a", "man", "dog", "on", "the", "beach", "red", "hat"]
+    vocab = make_test_vocab(words)
+    lines = [f"[unused{i}]" for i in range(160)]
+    for tok, idx in vocab.items():
+        lines[idx] = tok
+    paths = {k: str(tmp / k) for k in ("vocab.txt", "feats.store",
+                                       "caps.json", "enc.json", "dec.json",
+                                       "model.pt")}
+    open(paths["vocab.txt"], "w").write("\n".join(lines) + "\n")
+    ids = [7, 8, 9]
+    make_synthetic_store(paths["feats.store"], ids, num_boxes=5, feat_dim=16,
+                         num_classes=3)
+    json.dump([{"image_id": i, "caption": "a man on the beach"} for i in ids],
+              open(paths["caps.json"], "w"))
+    enc = dict(vocab_size=160, hidden_size=width, num_hidden_layers=2,
+               num_attention_heads=2, intermediate_size=2 * width,
+               v_feature_size=16, v_hidden_size=width, v_num_hidden_layers=1,
+               v_num_attention_heads=2, v_intermediate_size=width,
+               bi_hidden_size=width, bi_num_attention_heads=2,
+               v_biattention_id=[0], t_biattention_id=[1])
+    dec = dict(vocab_size=160, hidden_size=width, num_hidden_layers=1,
+               num_attention_heads=2, intermediate_size=2 * width)
+    json.dump(enc, open(paths["enc.json"], "w"))
+    json.dump(dec, open(paths["dec.json"], "w"))
+    model = GSTVisualDialog(EncoderConfig.from_json(paths["enc.json"]),
+                            DecoderConfig.from_json(paths["dec.json"]),
+                            device="cpu")
+    torch.save(model.state_dict(), paths["model.pt"])
+    return ["-mode", "cc12m_gen", "-vocab_path", paths["vocab.txt"],
+            "-cc12m_image_feats", paths["feats.store"],
+            "-cc12m_caption", paths["caps.json"],
+            "-model_enc_config", paths["enc.json"],
+            "-model_dec_config", paths["dec.json"],
+            "-start_path_q", paths["model.pt"],
+            "-start_path_a", paths["model.pt"],
+            "-save_path", str(tmp / "out"), "-save_name", "gen.json",
+            "-dtype", "bfloat16", "-batch_size", "2", "-max_seq_len", "64",
+            "-max_regions", "6", "-num_dialog_rounds", "2",
+            "-max_dec_len", "4", "-num_workers", "1"]
+
+
+@pytest.mark.parametrize("width,fused", [(32, False), (128, True)])
+def test_cli_bf16_on_the_card(dev, tmp_path, width, fused):
+    """The port's CLI in bf16 on the card writes its JSON; fused_ffn and
+    fused_dense_ln launch only where the widths are ones they take."""
+    import json
+
+    from gstx_torch.cli import generate
+
+    argv = _cli_env(tmp_path, width)
+    kffn.reset_launches()
+    records = generate.main(argv, device="cuda")
+    assert json.load(open(tmp_path / "out" / "gen.json")) == records
+    assert len(records) > 0
+    assert (kffn.launches["fused_ffn"] > 0) == fused
+    assert (kffn.launches["fused_dense_ln"] > 0) == fused

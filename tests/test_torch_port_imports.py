@@ -38,6 +38,8 @@ def test_scan_covers_the_package():
     assert "chip_smoke.py" in names
     assert "gstx_torch/decode/dialog_engine.py" in names
     assert "gstx_torch/kernels/ffn.py" in names
+    assert "gstx_torch/cli/generate.py" in names
+    assert "gstx_torch/data/tokenizer.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
