@@ -9,7 +9,13 @@
            instructions fails);
   phase 2  each kernel against its plain PyTorch version at every shape
            the main paths give it plus a ragged one (and, for attention,
-           K/V views whose rows past Lk hold NaN): bf16 fused_dense_ln,
+           K/V views whose rows past Lk hold NaN; for fused_dense_ln and
+           fused_ffn, the evaluators' scoring chunks at context 256: the
+           generative val chunk of 500 sequences, 128,000 text and 18,500
+           visual rows; the discriminative chunk of 200, 51,200 and 7,400;
+           the generative test chunk of 400, 102,400 and 14,800; each
+           visual count ends in a partial 32-row block): bf16
+           fused_dense_ln,
            fused_ffn, fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
@@ -61,10 +67,33 @@
            one 10-round record with finite perplexities for each
            non-abnormal image, and the sidecar must be gone.  Prints the
            run's img/s and generated tok/s and whether the native host
-           paths served.
+           paths served.  The seeded model is also saved encoder-only
+           (bert_pretrained.*) for phase 7;
+  phase 7  the port's evaluator CLIs (gstx_torch.cli.evaluate_gen /
+           evaluate_disc .main) in-process at full width, bf16,
+           -use_pallas, on phase 6's vocab and checkpoints: a synthetic
+           VisDial v1.0 val set of 20 dialogs x 10 rounds x 100 options
+           with dense annotations, a test set of 4 dialogs, and a store of
+           those 24 images.  Generative vd_eval_val (one batch of 20 =
+           20,000 sequences in 40 chunks of 500: 1,200 fused_ffn and 1,200
+           fused_dense_ln, 30 a chunk, the rest 0) with finite metrics in
+           range and performance_log.txt; vd_eval_test (one chunk of 400:
+           30 / 30) writing 4 permutations of 1..100 to predictions.txt;
+           the same with -no_use_pallas (0 launches); discriminative
+           vd_eval_val with the encoder-only model (100 chunks of 200:
+           3,000 / 3,000).  Prints each run's main() wall time, scored
+           sequences and images a second in its batch loop and peak device
+           memory.  Then the bf16 kernel path against the f32 unfused model
+           on the first image's first round (100 options): generative and
+           NSP scores, centred over the options, within a relative error
+           of EVAL_SCORE_TOL, and two controls on the kernel path that must
+           exceed it (every fused_ffn's FFN branch zeroed; every
+           fused_dense_ln's projection zeroed), beside the bf16 unfused
+           model's reading.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
-after a profiled round ran 26-50% slower.  Prints the kernels JSON line,
+after a profiled round ran 26-50% slower.  Phases 6 and 7 write their
+inputs to one temporary directory.  Prints the kernels JSON line,
 the card line, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero with no result; so does a machine without CUDA or a
 directory without gstx_torch.
@@ -80,6 +109,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +121,11 @@ ABS_TOL, REL_TOL = 1e-2, 1.6e-2
 # error of the decoder memory K/V and of the logits (bf16 rounding through
 # ~20 sequential layers)
 MODEL_REL_TOL = 5e-2
+# phase 7: one round's bf16 kernel-path scores against the f32 unfused
+# model's, both centred over the round's options (relative error), for the
+# generative and the NSP scorer; a control with a kernel's output broken
+# must exceed it
+EVAL_SCORE_TOL = {"gen": 1e-2, "disc": 0.3}
 # int8 decode step vs the f32 unfused model: max |dlogit| / max |logit|
 # (tests/test_quantized_memory.py:108)
 INT8_LOGIT_TOL = 5e-2
@@ -223,7 +258,24 @@ DENSE_LN_SHAPES = [("text 24576x768->768", 24576, 768, 768),
                    ("BiOutput-t 24576x1024->768", 24576, 1024, 768),
                    ("ragged 1000x768->768", 1000, 768, 768),
                    ("text ctx128 12288x768->768", 12288, 768, 768),
-                   ("text ctx192 18432x768->768", 18432, 768, 768)]
+                   ("text ctx192 18432x768->768", 18432, 768, 768),
+                   # the evaluators' scoring chunks at context 256 and 37
+                   # regions, whose visual rows end in a partial 32-row
+                   # block: the generative val chunk of 500 sequences, the
+                   # discriminative chunk of 200, the generative test
+                   # chunk of 400
+                   ("eval text 128000x768->768", 128000, 768, 768),
+                   ("eval BiOutput-t 128000x1024->768", 128000, 1024, 768),
+                   ("eval visual tail 18500x1024->1024", 18500, 1024, 1024),
+                   ("eval disc text 51200x768->768", 51200, 768, 768),
+                   ("eval disc BiOutput-t 51200x1024->768", 51200, 1024, 768),
+                   ("eval disc visual tail 7400x1024->1024", 7400, 1024,
+                    1024),
+                   ("eval test text 102400x768->768", 102400, 768, 768),
+                   ("eval test BiOutput-t 102400x1024->768", 102400, 1024,
+                    768),
+                   ("eval test visual tail 14800x1024->1024", 14800, 1024,
+                    1024)]
 
 
 def dense_ln_inputs(torch, randn, m, k, d):
@@ -242,7 +294,14 @@ FFN_SHAPES = [("text 24576x768x3072", 24576, 768, 3072),
               ("visual/co-v 3552x1024x1024", 3552, 1024, 1024),
               ("ragged 1000x768x3072", 1000, 768, 3072),
               ("text ctx128 12288x768x3072", 12288, 768, 3072),
-              ("text ctx192 18432x768x3072", 18432, 768, 3072)]
+              ("text ctx192 18432x768x3072", 18432, 768, 3072),
+              # the evaluators' scoring chunks, as DENSE_LN_SHAPES
+              ("eval text 128000x768x3072", 128000, 768, 3072),
+              ("eval visual tail 18500x1024x1024", 18500, 1024, 1024),
+              ("eval disc text 51200x768x3072", 51200, 768, 3072),
+              ("eval disc visual tail 7400x1024x1024", 7400, 1024, 1024),
+              ("eval test text 102400x768x3072", 102400, 768, 3072),
+              ("eval test visual tail 14800x1024x1024", 14800, 1024, 1024)]
 
 
 def ffn_inputs(torch, randn, m, d, f):
@@ -277,12 +336,17 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         return float(err.max())
 
     entries = []
-    # the context-bucket shapes draw from a generator of their own, so the
-    # other rows' inputs stay those of earlier runs
-    own_ln = make_randn(torch, torch.Generator(device=dev).manual_seed(5))
+    # the context-bucket shapes and the eval shapes draw from generators of
+    # their own, so the other rows' inputs stay those of earlier runs
+    def draws(n_first, n_ctx, seed, n):
+        own = [make_randn(torch, torch.Generator(device=dev).manual_seed(s))
+               for s in (seed, seed + 10)]
+        return [randn] * n_first + [own[0]] * n_ctx + \
+            [own[1]] * (n - n_first - n_ctx)
+    ln_draws = draws(4, 2, 5, len(DENSE_LN_SHAPES))
     rows = []
     for i, (label, m, k, d) in enumerate(DENSE_LN_SHAPES):
-        args = dense_ln_inputs(torch, randn if i < 4 else own_ln, m, k, d)
+        args = dense_ln_inputs(torch, ln_draws[i], m, k, d)
         x, w, b, res, g, be = args
         err = held("fused_dense_ln", label, kffn.fused_dense_ln(*args),
                    kffn.dense_ln_plain(*args))
@@ -300,12 +364,12 @@ def kernel_phase(torch, kffn, kattn, kdecode):
         log(f"[phase 2] fused_dense_ln {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_dense_ln", "gstx/kernels/ffn.py:254", rows))
 
-    # the context-bucket shapes draw from a generator of their own, so the
-    # attention rows' inputs stay those of earlier runs
-    own = make_randn(torch, torch.Generator(device=dev).manual_seed(4))
+    # after the first three, as above (the attention rows' inputs stay
+    # those of earlier runs)
+    ffn_draws = draws(3, 2, 4, len(FFN_SHAPES))
     rows = []
     for i, (label, m, d, f) in enumerate(FFN_SHAPES):
-        args = ffn_inputs(torch, randn if i < 3 else own, m, d, f)
+        args = ffn_inputs(torch, ffn_draws[i], m, d, f)
         x, w1, b1, w2, b2, g, be = args
         err = held("fused_ffn", label, kffn.fused_ffn(*args),
                    kffn.ffn_plain(*args))
@@ -598,9 +662,8 @@ def engine_phases(torch, np, counters, rounds, batches, card):
             dtype=torch.bfloat16, context_buckets=(128, 192), device="cuda",
             **kw)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    per_forward = (enc_cfg.num_hidden_layers + enc_cfg.v_num_hidden_layers
-                   + 2 * len(enc_cfg.v_biattention_id))
-    ffn_each = per_forward * 2 * rounds * batches  # 2 encoder passes a round
+    each_pass = per_forward()
+    ffn_each = each_pass * 2 * rounds * batches  # 2 encoder passes a round
 
     outs, wall, default_counts = run_engine(
         torch, engine(rounds), model, batch, gen, counters, batches,
@@ -614,7 +677,7 @@ def engine_phases(torch, np, counters, rounds, batches, card):
     breakdown(torch, model, batch, settings, card, "phase 4", False)
 
     counts = int8_phase(torch, model, ref, (kv32, m32), args, batch,
-                        settings, engine, gen, counters, per_forward,
+                        settings, engine, gen, counters, each_pass,
                         dec_cfg, batches, card)
     from gstx_torch.kernels import attention as kattn
     from gstx_torch.kernels import decode_attn as kdecode
@@ -632,7 +695,7 @@ def engine_phases(torch, np, counters, rounds, batches, card):
 
 
 def int8_phase(torch, model, ref, ref_memory, args, batch, settings, engine,
-               gen, counters, per_forward, dec_cfg, batches, card):
+               gen, counters, each_pass, dec_cfg, batches, card):
     """Phase 5: int8 decode memory with quant_decode_attention and
     fused_attention on, at ROUNDS rounds whatever phase 3 ran."""
     from gstx_torch.decode.sampler import init_cache
@@ -676,15 +739,15 @@ def int8_phase(torch, model, ref, ref_memory, args, batch, settings, engine,
     outs, wall, counts = run_engine(
         torch, engine(rounds, quantize_memory=True), model, batch, gen,
         counters, batches, "phase 5")
-    encoder_each = per_forward * 2 * rounds * batches
+    encoder_each = each_pass * 2 * rounds * batches
     check_launches("phase 5", counts, {
         "fused_dense_ln": encoder_each, "fused_ffn": encoder_each,
         # every encoder attention (one per text or visual layer, two per
-        # co-attention layer: per_forward again) in both passes, and the
+        # co-attention layer: each_pass again) in both passes, and the
         # scoring pass's self-attentions (its cross-attention takes the
         # unfused int8 branch)
         "fused_attention":
-            (2 * per_forward + dec_cfg.num_hidden_layers) * rounds * batches,
+            (2 * each_pass + dec_cfg.num_hidden_layers) * rounds * batches,
         "fused_attention_batch": 0,
         # every layer of every decode step (no decode ends early)
         "quant_decode_attention":
@@ -775,8 +838,6 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
     kernels.  Run after every timed measurement: on an H100 machine the
     engine's timings taken after a profiled round ran 26-50% slower for the
     rest of the run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gstx_torch.decode.dialog_engine import make_dialog_engine
     from gstx_torch.decode.sampler import DecodeSettings
 
@@ -786,9 +847,18 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
         num_rounds=1, q_settings=q_set,
         a_settings=DecodeSettings(ngram_blocking_size=0, **settings),
         dtype=torch.bfloat16, quantize_memory=quantize, device="cuda")
+    profiled(torch, lambda: one(model, model, batch, gen),
+             "round at context 256", card, tag)
+
+
+def profiled(torch, fn, what, card, tag):
+    """``fn`` under torch.profiler: the device's busy share and its top
+    kernels, with the shares of the port's own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = synced(torch, lambda: one(model, model, batch, gen))
+        _, wall_ms = synced(torch, fn)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -796,7 +866,7 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
         log(f"[{tag}] profiler: no device time recorded; busy share not "
             "measured")
         return
-    log(f"[{tag}] profiled round at context 256: wall {wall_ms:.1f} ms "
+    log(f"[{tag}] profiled {what}: wall {wall_ms:.1f} ms "
         f"(profiler on), device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} "
         f"kernel launches, on {card}")
@@ -820,19 +890,10 @@ CLI_BATCH = 96
 EOS_BIAS = 3.0     # bench.py -short_answers 1 -eos_bias 3.0
 
 
-def cli_inputs(torch, np, tmp):
-    """Phase 6's inputs in ``tmp``: a 30,522-line WordPiece vocab in
-    bert-base-uncased's layout (specials at 0 and 100-103, [unused*]
-    between, then synthetic words and ## pieces), a synthetic store of
-    CLI_IMAGES images x 36 boxes x 2,048 features, captions of 8-16 vocab
-    words with their url maps, and a full-width model from a seed saved as
-    a reference .ckpt ({"model_state_dict": ...}, f32).  Returns the CLI's
-    data flags."""
-    from gstx_torch.core.config import (SEP_ID, DecoderConfig,
-                                        EncoderConfig)
-    from gstx_torch.data.feature_store import make_synthetic_store
-    from gstx_torch.models.encdec import GSTVisualDialog
-
+def make_vocab():
+    """A 30,522-entry WordPiece vocab in bert-base-uncased's layout:
+    specials at 0 and 100-103, [unused*] between, then synthetic words and
+    ## pieces."""
     def word(i):
         s = ""
         while i:
@@ -840,8 +901,25 @@ def cli_inputs(torch, np, tmp):
         return s
     vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + \
         ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
-    vocab += [("##" if i % 5 == 0 else "") + word(i)
-              for i in range(len(vocab), 30522)]
+    return vocab + [("##" if i % 5 == 0 else "") + word(i)
+                    for i in range(len(vocab), 30522)]
+
+
+def cli_inputs(torch, np, tmp):
+    """Phase 6's inputs in ``tmp``: :func:`make_vocab`'s vocab, a
+    synthetic store of
+    CLI_IMAGES images x 36 boxes x 2,048 features, captions of 8-16 vocab
+    words with their url maps, and a full-width model from a seed saved as
+    a reference .ckpt ({"model_state_dict": ...}, f32), and its encoder as
+    an encoder-only one in the reference's discriminative layout
+    (``bert_pretrained.*``) for phase 7.  Returns the parameter count, the
+    CLI's data flags and the vocab."""
+    from gstx_torch.core.config import (SEP_ID, DecoderConfig,
+                                        EncoderConfig)
+    from gstx_torch.data.feature_store import make_synthetic_store
+    from gstx_torch.models.encdec import GSTVisualDialog
+
+    vocab = make_vocab()
     paths = {k: os.path.join(tmp, k) for k in
              ("vocab.txt", "feats.store", "caps.json", "urls.json",
               "url_caps.json", "model.ckpt")}
@@ -866,13 +944,16 @@ def cli_inputs(torch, np, tmp):
     with torch.no_grad():
         # random weights never sample EOS; bench.py's short-answer bias
         model.dec.lm_head.bias[SEP_ID] += EOS_BIAS
-    torch.save({"model_state_dict": {k: v.cpu() for k, v in
-                                     model.state_dict().items()}},
-               paths["model.ckpt"])
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    torch.save({"model_state_dict": state}, paths["model.ckpt"])
+    pre = "encoder.bert_pretrained."
+    torch.save({"model_state_dict": {
+        "bert_pretrained." + k[len(pre):]: v for k, v in state.items()
+        if k.startswith(pre)}}, os.path.join(tmp, "encoder.ckpt"))
     n_params = sum(p.numel() for p in model.parameters())
-    del model
+    del model, state
     torch.cuda.empty_cache()
-    return n_params, [
+    return n_params, vocab, [
         "-vocab_path", paths["vocab.txt"],
         "-cc12m_image_feats", paths["feats.store"],
         "-cc12m_caption", paths["caps.json"],
@@ -882,53 +963,60 @@ def cli_inputs(torch, np, tmp):
         "-start_path_a", paths["model.ckpt"]]
 
 
-def cli_phase(torch, np, counters, card):
+def per_forward():
+    """Every fused site of one full-width encoder forward: one fused_ffn and
+    one fused_dense_ln a text or visual layer, two of each a co-attention
+    layer (30)."""
+    from gstx_torch.core.config import EncoderConfig
+
+    enc = EncoderConfig()
+    return (enc.num_hidden_layers + enc.v_num_hidden_layers
+            + 2 * len(enc.v_biattention_id))
+
+
+def cli_phase(torch, np, counters, card, tmp):
     """Phase 6: the port's generation CLI, gstx_torch.cli.generate.main,
     in-process at full width on CLI_IMAGES images: bf16, batch 96, context
     256, 37 regions, buckets 128/192, 10 rounds of 18 steps, the default
     sampling (T 0.7, top-k 7, n-gram 4 for questions, fused sampler),
-    -use_pallas, -host_prefetch and -pipeline 2.  Returns its launch
-    counts (fused_ffn and fused_dense_ln 600 a batch, the rest 0)."""
+    -use_pallas, -host_prefetch and -pipeline 2; inputs in ``tmp``.
+    Returns its launch counts (fused_ffn and fused_dense_ln 600 a batch,
+    the rest 0), the vocab and the checkpoints' paths."""
     import math
-    import tempfile
 
     from gstx_torch import native
     from gstx_torch.cli import generate
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        n_params, data = cli_inputs(torch, np, tmp)
-        log(f"[phase 6] inputs written in {time.perf_counter() - t0:.2f} s "
-            f"({n_params / 1e6:.1f} M params, {CLI_IMAGES} images)")
-        out_dir = os.path.join(tmp, "out")
-        argv = data + [
-            "-mode", "cc12m_gen", "-dtype", "bfloat16",
-            "-batch_size", str(CLI_BATCH), "-max_seq_len", "256",
-            "-max_regions", "37", "-context_buckets", "128,192",
-            "-num_dialog_rounds", str(ROUNDS), "-max_dec_len", "18",
-            "-use_pallas", "-host_prefetch", "-pipeline", "2",
-            "-num_workers", "4", "-save_path", out_dir,
-            "-save_name", "dialogs.json"]
-        stats = {}
-        native.reset_served()
-        counters.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        records = generate.main(argv, stats_out=stats, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = counters.read()
-        out_path = os.path.join(out_dir, "dialogs.json")
-        with open(out_path) as f:
-            written = json.load(f)
-        sidecar_left = os.path.exists(out_path + ".partial.jsonl")
-    from gstx_torch.core.config import EncoderConfig
+    t0 = time.perf_counter()
+    n_params, vocab, data = cli_inputs(torch, np, tmp)
+    log(f"[phase 6] inputs written in {time.perf_counter() - t0:.2f} s "
+        f"({n_params / 1e6:.1f} M params, {CLI_IMAGES} images)")
+    out_dir = os.path.join(tmp, "out")
+    argv = data + [
+        "-mode", "cc12m_gen", "-dtype", "bfloat16",
+        "-batch_size", str(CLI_BATCH), "-max_seq_len", "256",
+        "-max_regions", "37", "-context_buckets", "128,192",
+        "-num_dialog_rounds", str(ROUNDS), "-max_dec_len", "18",
+        "-use_pallas", "-host_prefetch", "-pipeline", "2",
+        "-num_workers", "4", "-save_path", out_dir,
+        "-save_name", "dialogs.json"]
+    stats = {}
+    native.reset_served()
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = generate.main(argv, stats_out=stats, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    out_path = os.path.join(out_dir, "dialogs.json")
+    with open(out_path) as f:
+        written = json.load(f)
+    sidecar_left = os.path.exists(out_path + ".partial.jsonl")
 
-    enc = EncoderConfig()
     batches = -(-CLI_IMAGES // CLI_BATCH)
-    # every fused site of an encoder forward, two forwards a round
-    per_batch = (enc.num_hidden_layers + enc.v_num_hidden_layers
-                 + 2 * len(enc.v_biattention_id)) * 2 * ROUNDS
+    # two encoder forwards a round
+    per_batch = per_forward() * 2 * ROUNDS
     check_launches("phase 6", counts, {
         "fused_dense_ln": per_batch * batches,
         "fused_ffn": per_batch * batches,
@@ -960,7 +1048,289 @@ def cli_phase(torch, np, counters, card):
     q = records[0]["dialog"][0]
     log(f"[phase 6] first record: image {records[0]['image_id']}, "
         f"q {q['question']!r}, a {q['answer']!r}, ppl {q['answer_ppl']:.2f}")
-    return counts
+    ckpts = {"full": os.path.join(tmp, "model.ckpt"),
+             "encoder": os.path.join(tmp, "encoder.ckpt")}
+    return counts, vocab, ckpts
+
+
+EVAL_IMAGES = 20      # one VisDial v1.0 eval batch (evaluate_gen.py:151)
+EVAL_TEST_IMAGES = 4
+EVAL_OPTIONS = 100
+GEN_CHUNK, DISC_CHUNK = 500, 200  # the reference evaluators' chunks
+
+
+def eval_inputs(np, tmp, vocab):
+    """Phase 7's data in ``tmp``, in the VisDial v1.0 layouts: a val JSON of
+    EVAL_IMAGES dialogs (a caption of 8-14 words, 10 rounds of a 4-8-word
+    question and 100 answer options of 1-5 words, one of them the answer),
+    its dense annotations (one round each, relevance in quarters), a test
+    JSON of EVAL_TEST_IMAGES dialogs of 1-10 rounds with ``round_id``, and
+    a synthetic store of those images x 36 boxes x 2,048 features.  Words
+    come from phase 6's vocab.  Returns the evaluators' data flags."""
+    from gstx_torch.data.feature_store import make_synthetic_store
+
+    rng = np.random.RandomState(1)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+
+    def sample(lo, hi):
+        return " ".join(words[j] for j in
+                        rng.randint(0, len(words), rng.randint(lo, hi + 1)))
+    questions = [sample(4, 8) for _ in range(2000)]
+    answers = [sample(1, 5) for _ in range(2000)]
+
+    def dialogs(ids, test):
+        out = []
+        for i in ids:
+            rounds = []
+            for _ in range(rng.randint(1, 11) if test else 10):
+                opts = rng.choice(len(answers), EVAL_OPTIONS, replace=False)
+                gt = int(rng.randint(EVAL_OPTIONS))
+                rounds.append({"question": int(rng.randint(len(questions))),
+                               "answer": int(opts[gt]), "gt_index": gt,
+                               "answer_options": [int(o) for o in opts]})
+            d = {"image_id": i, "caption": sample(8, 14), "dialog": rounds}
+            if test:
+                d["round_id"] = len(rounds)
+            out.append(d)
+        return {"data": {"dialogs": out, "questions": questions,
+                         "answers": answers}}
+    val_ids = list(range(5000, 5000 + EVAL_IMAGES))
+    test_ids = list(range(6000, 6000 + EVAL_TEST_IMAGES))
+    paths = {k: os.path.join(tmp, k) for k in
+             ("val.json", "test.json", "dense.json", "eval.store")}
+    json.dump(dialogs(val_ids, False), open(paths["val.json"], "w"))
+    json.dump(dialogs(test_ids, True), open(paths["test.json"], "w"))
+    json.dump([{"image_id": i, "round_id": int(rng.randint(1, 11)),
+                "gt_relevance": [float(x) for x in
+                                 rng.randint(0, 5, EVAL_OPTIONS) / 4.0
+                                 * (rng.rand(EVAL_OPTIONS) < 0.3)]}
+               for i in val_ids], open(paths["dense.json"], "w"))
+    make_synthetic_store(paths["eval.store"], val_ids + test_ids,
+                         num_boxes=36, feat_dim=2048, num_classes=1601,
+                         seed=1)
+    return ["-visdial_processed_train", paths["val.json"],
+            "-visdial_processed_val", paths["val.json"],
+            "-visdial_processed_test", paths["test.json"],
+            "-visdial_processed_val_dense_annotations", paths["dense.json"],
+            "-visdial_image_feats", paths["eval.store"],
+            "-vd_version", "1.0", "-num_options", str(EVAL_OPTIONS),
+            "-max_seq_len", "256", "-max_utt_len", "25",
+            "-max_regions", "37", "-dtype", "bfloat16", "-num_workers", "4"]
+
+
+def eval_run(torch, counters, card, tag, cli, argv, chunk, images,
+             sequences, want_counts):
+    """One in-process evaluator CLI run with every launch counter set to 0
+    just before and read just after; checks the counts and the images and
+    sequences scored, and prints main()'s wall time, the batch loop's rates
+    and the peak device memory.  Returns (result, counts)."""
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    result = cli.main(argv, chunk_size=chunk, device="cuda",
+                      stats_out=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(tag, counts, want_counts)
+    if stats["images"] != images or stats["sequences"] != sequences:
+        raise AssertionError(f"{tag}: {stats}")
+    loop = stats["loop_seconds"]
+    log(f"[{tag}] {stats['images']} images, {stats['sequences']} sequences "
+        f"in {stats['chunks']} chunks of {chunk}: main() {wall:.2f} s wall "
+        f"with loading, batch loop {loop:.2f} s (waiting for the loader "
+        f"{stats['wait_seconds']:.2f} s) = "
+        f"{stats['sequences'] / loop:.1f} scored sequences/s, "
+        f"{stats['images'] / loop:.3f} images/s; peak device memory "
+        f"{peak:.2f} GiB; on {card}")
+    return result, counts
+
+
+def check_metrics(tag, metrics, options):
+    want = {"r@1", "r@5", "r@10", "mean", "mrr", "ndcg"}
+    if set(metrics) != want:
+        raise AssertionError(f"{tag}: metrics {sorted(metrics)}")
+    for k, v in metrics.items():
+        hi = options if k == "mean" else 1.0
+        lo = 1.0 if k == "mean" else 0.0
+        if not (lo <= v <= hi):  # also false for NaN
+            raise AssertionError(f"{tag}: {k} = {v}")
+    log(f"[{tag}] metrics: {json.dumps(metrics)}")
+
+
+def centred_err(torch, got, want):
+    """Relative error of one round's scores centred over its options: the
+    round's common offset (the same context for every option) drops out,
+    as it does from the options' order."""
+    return rel_err(got - got.mean(), want - want.mean())
+
+
+def eval_accuracy(torch, counters, card, tag, config, use_decoder, ckpt,
+                  dataset, flatten, make_scorer, feat_keys, chunk, limit):
+    """The bf16 kernel path against the f32 unfused model on the first
+    image's first round (EVAL_OPTIONS sequences): relative error of the
+    scores centred over the options, within ``limit``.  Beside it the
+    bf16 unfused model (bf16 rounding alone) and two controls that must
+    fail that limit: the kernel path with every fused_ffn's FFN branch
+    zeroed (W2, b2 = 0) and with every fused_dense_ln's projection zeroed
+    (W, b = 0).  Then one profiled chunk of the bf16 model, the last
+    timing of the phase (timings after a profiled run are slow)."""
+    from gstx_torch.cli.common import build_model, load_params
+    from gstx_torch.data.loader import collate
+    from gstx_torch.eval.rank_gen import batch_to_device, chunk_inputs
+    from gstx_torch.kernels import ffn as kffn
+    from gstx_torch.models.encdec import precast_
+
+    ref = load_params(build_model(config, device="cuda",
+                                  use_decoder=use_decoder), ckpt)
+    model = precast_(copy.deepcopy(ref), torch.bfloat16)
+    text, images, (_, rounds, options) = flatten(
+        collate([dataset.__getitem__(0, seed=0)]))
+    inputs = {m.dtype: batch_to_device(text, images, "cuda", m.dtype,
+                                       feat_keys) for m in (ref, model)}
+
+    def score(m, stop=options):
+        with torch.inference_mode():
+            return make_scorer(m)(chunk_inputs(
+                *inputs[m.dtype], 0, stop, rounds * options)).float()
+    want = score(ref)
+    before = counters.read()
+    got = score(model)
+    after = counters.read()
+    if not (after["fused_ffn"] > before["fused_ffn"] and
+            after["fused_dense_ln"] > before["fused_dense_ln"]):
+        raise AssertionError(f"{tag}: the bf16 check reached no kernel")
+    sound = centred_err(torch, got, want)
+    kffn.enable(False)
+    try:
+        unfused = centred_err(torch, score(model), want)
+    finally:
+        kffn.enable(True)
+    real_ffn, real_ln = kffn.fused_ffn, kffn.fused_dense_ln
+
+    def ffn_lost(x, w1, b1, w2, b2, *ln, **eps):
+        return real_ffn(x, w1, b1, torch.zeros_like(w2),
+                        torch.zeros_like(b2), *ln, **eps)
+
+    def projection_lost(x, w, b, *rest, **eps):
+        return real_ln(x, torch.zeros_like(w), torch.zeros_like(b), *rest,
+                       **eps)
+    controls = {}
+    for name, attr, fn in (("FFN branch zeroed", "fused_ffn", ffn_lost),
+                           ("projection zeroed", "fused_dense_ln",
+                            projection_lost)):
+        setattr(kffn, attr, fn)
+        try:
+            controls[name] = centred_err(torch, score(model), want)
+        finally:
+            kffn.fused_ffn, kffn.fused_dense_ln = real_ffn, real_ln
+    log(f"[{tag}] first image's first round ({options} options), scores "
+        f"centred over the options, relative error to the f32 unfused "
+        f"model: bf16 kernel path {sound:.4g} (limit {limit}; "
+        f"uncentred {rel_err(got, want):.4g}), bf16 unfused {unfused:.4g}; "
+        "controls on the kernel path: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in controls.items())
+        + f"; f32 scores {want[:3].tolist()}, spread (std) "
+        f"{float(want.std()):.4g}")
+    if not sound <= limit:
+        raise AssertionError(f"{tag}: bf16 kernel scores disagree with f32")
+    if not min(controls.values()) > limit:
+        raise AssertionError(f"{tag}: a control passes the limit: the "
+                             "check cannot see a wrong kernel")
+    # where a full chunk's device time goes (the image's first `chunk` rows)
+    del ref
+    with torch.inference_mode():
+        profiled(torch, lambda: score(model, chunk),
+                 f"chunk of {chunk} sequences (bf16, kernels)", card, tag)
+    del model
+
+
+def eval_phase(torch, np, counters, card, tmp, vocab, ckpts):
+    """Phase 7: the evaluator CLIs (gstx_torch.cli.evaluate_gen / _disc)
+    in-process at full width, bf16, -use_pallas, on phase 6's vocab and
+    checkpoints (the generative one carries phase 6's +3.0 EOS bias).
+    Returns the launch counts of the generative and discriminative
+    vd_eval_val runs."""
+    from gstx_torch.cli import common, evaluate_disc, evaluate_gen
+    from gstx_torch.data.tokenizer import BertTokenizer
+    from gstx_torch.data.visdial import VisdialDiscDataset, VisdialGenDataset
+    from gstx_torch.eval import rank_disc, rank_gen
+    from gstx_torch.kernels import ffn as kffn
+
+    t0 = time.perf_counter()
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    data = eval_inputs(np, tmp, vocab) + ["-vocab_path", vocab_path]
+    log(f"[phase 7] inputs written in {time.perf_counter() - t0:.2f} s")
+    each = per_forward()
+
+    def want(n_chunks):
+        return {"fused_dense_ln": each * n_chunks,
+                "fused_ffn": each * n_chunks, "fused_attention": 0,
+                "fused_attention_batch": 0, "quant_decode_attention": 0}
+
+    def out(name):
+        return ["-save_path", os.path.join(tmp, name)]
+    gen = data + ["-start_path", ckpts["full"], "-use_pallas"]
+    n_val = EVAL_IMAGES * ROUNDS * EVAL_OPTIONS
+    metrics, gen_counts = eval_run(
+        torch, counters, card, "phase 7 gen val", evaluate_gen,
+        gen + ["-mode", "vd_eval_val"] + out("gen_val"), GEN_CHUNK,
+        EVAL_IMAGES, n_val, want(n_val // GEN_CHUNK))
+    check_metrics("phase 7 gen val", metrics, EVAL_OPTIONS)
+    if not os.path.exists(os.path.join(tmp, "gen_val",
+                                       "performance_log.txt")):
+        raise AssertionError("performance_log.txt not written")
+
+    n_test = EVAL_TEST_IMAGES * EVAL_OPTIONS
+    ranks, _ = eval_run(
+        torch, counters, card, "phase 7 gen test", evaluate_gen,
+        gen + ["-mode", "vd_eval_test"] + out("gen_test"), GEN_CHUNK,
+        EVAL_TEST_IMAGES, n_test, want(-(-n_test // GEN_CHUNK)))
+    with open(os.path.join(tmp, "gen_test", "predictions.txt")) as f:
+        written = json.load(f)
+    if written != ranks or len(ranks) != EVAL_TEST_IMAGES or any(
+            sorted(r["ranks"]) != list(range(1, EVAL_OPTIONS + 1))
+            for r in ranks):
+        raise AssertionError("predictions.txt: not 4 permutations of 1..100")
+    log(f"[phase 7 gen test] predictions.txt: {len(ranks)} entries, first "
+        f"image {ranks[0]['image_id']} round {ranks[0]['round_id']} ranks "
+        f"{ranks[0]['ranks'][:10]}...")
+
+    try:
+        eval_run(torch, counters, card, "phase 7 gen test -no_use_pallas",
+                 evaluate_gen, data + ["-start_path", ckpts["full"],
+                                       "-no_use_pallas", "-mode",
+                                       "vd_eval_test"] + out("gen_test_off"),
+                 GEN_CHUNK, EVAL_TEST_IMAGES, n_test, want(0))
+    finally:
+        kffn.enable(True)
+
+    metrics, disc_counts = eval_run(
+        torch, counters, card, "phase 7 disc val", evaluate_disc,
+        data + ["-start_path", ckpts["encoder"], "-use_pallas",
+                "-model", "enc_only_a", "-mode", "vd_eval_val"]
+        + out("disc_val"), DISC_CHUNK, EVAL_IMAGES, n_val,
+        want(n_val // DISC_CHUNK))
+    check_metrics("phase 7 disc val", metrics, EVAL_OPTIONS)
+
+    config = common.parse_config(data + ["-mode", "vd_eval_val"])
+    tok = BertTokenizer(vocab_path=vocab_path)
+    eval_accuracy(torch, counters, card, "phase 7 gen", config, True,
+                  ckpts["full"],
+                  VisdialGenDataset(config, tok, mode="vd_eval_val"),
+                  rank_gen.flatten_gen, rank_gen.make_chunk_scorer,
+                  ("enc_image_feat", "enc_image_loc"), GEN_CHUNK,
+                  EVAL_SCORE_TOL["gen"])
+    eval_accuracy(torch, counters, card, "phase 7 disc", config, False,
+                  ckpts["encoder"],
+                  VisdialDiscDataset(config, tok, mode="vd_eval_val"),
+                  rank_disc.flatten_disc, rank_disc.make_nsp_scorer,
+                  ("image_feat", "image_loc"), DISC_CHUNK,
+                  EVAL_SCORE_TOL["disc"])
+    return gen_counts, disc_counts
 
 
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
@@ -1008,7 +1378,10 @@ def main():
     counters = Counters(kffn, kattn, kdecode)
     default_counts, int8_counts, profile_last = engine_phases(
         torch, np, counters, ROUNDS, TIMED_BATCHES, card)
-    cli_counts = cli_phase(torch, np, counters, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_counts, vocab, ckpts = cli_phase(torch, np, counters, card, tmp)
+        gen_counts, disc_counts = eval_phase(torch, np, counters, card, tmp,
+                                             vocab, ckpts)
     profile_last()
 
     kernels = []
@@ -1023,7 +1396,9 @@ def main():
             launches=(cli_counts if on_default else int8_counts)[name],
             launches_by_path={"default": default_counts[name],
                               "int8_attention": int8_counts[name],
-                              "cli": cli_counts[name]},
+                              "cli": cli_counts[name],
+                              "eval_gen": gen_counts[name],
+                              "eval_disc": disc_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -86,12 +86,14 @@ def build_tokenizer(config: GSTConfig) -> BertTokenizer:
     return BertTokenizer(vocab_path=config.vocab_path)
 
 
-def build_model(config: GSTConfig, device="cuda", seed: int = 0
-                ) -> GSTVisualDialog:
+def build_model(config: GSTConfig, device="cuda", seed: int = 0,
+                use_decoder: bool = True) -> GSTVisualDialog:
     """The port's model from the encoder/decoder configs (or their JSONs),
-    on ``device``, with seeded initial weights."""
+    on ``device``, with seeded initial weights; ``use_decoder=False`` builds
+    the encoder-only model of the discriminative evaluator."""
     return GSTVisualDialog(config.encoder_config(), config.decoder_config(),
-                           device=device, seed=seed).eval()
+                           device=device, seed=seed,
+                           use_decoder=use_decoder).eval()
 
 
 def load_params(model: GSTVisualDialog, path: str) -> GSTVisualDialog:

@@ -224,9 +224,23 @@ def load_checkpoint(model, path: str) -> str:
     unknown; the fusion and decoder keep their initial weights, except the
     LM projection, seeded from the loaded word embeddings as the
     reference's pretrained init does (``gstx/cli/common.py::load_params``).
+
+    An encoder-only model (``use_decoder=False``, the discriminative
+    evaluator's) takes an encoder-only checkpoint with ``strict=True`` and
+    refuses a full one: the reference's discriminative checkpoints have no
+    decoder or fusion names.
     """
     sd = read_state_dict(path)
-    if any(k.startswith("decoder.") for k in sd):
+    full = any(k.startswith("decoder.") for k in sd)
+    if not model.use_decoder:
+        if full:
+            raise RuntimeError(
+                f"{path} is a full (encoder-decoder) checkpoint; the "
+                "encoder-only model (-model enc_only_a) takes an "
+                "encoder-only checkpoint")
+        model.load_state_dict(sd, strict=True)
+        return "encoder"
+    if full:
         model.load_state_dict(sd, strict=True)
         return "full"
     own = model.state_dict()

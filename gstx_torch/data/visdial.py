@@ -1,13 +1,14 @@
 """VisDial dataset pipelines: the port's copy of ``gstx/data/visdial.py``
-(lines 31-356), itself a NumPy port of the reference dataloaders with
+(lines 31-612), itself a NumPy port of the reference dataloaders with
 identical item keys and shapes.
 
-This slice ports the generation mode ``vd_gen_val`` (caption-only context
-and a [CLS] decoder seed, ``dataloader_visdial_gen.py:460-505``).  The
-other generative modes and the discriminative dataset raise
-``NotImplementedError`` naming the ROADMAP item that ports them:
-``vd_eval_val`` / ``vd_eval_test`` and ``VisdialDiscDataset`` with
-evaluation (queue 1 item 4), ``vd_train`` with training (item 5).
+The generative dataset serves ``vd_gen_val`` (caption-only context and a
+[CLS] decoder seed, ``dataloader_visdial_gen.py:460-505``) and the ranking
+modes ``vd_eval_val`` / ``vd_eval_test`` (10 rounds x num_options, or the
+last round x 100 options); the discriminative dataset serves
+``vd_eval_val`` / ``vd_eval_test`` (full-sequence options).  The training
+mode ``vd_train`` of either raises ``NotImplementedError`` naming the
+ROADMAP item that ports it (queue 1 item 5, training).
 
 Questions and answers are shared index tables in the VisDial JSON, so
 tokenization is memoized per index (the reference re-tokenizes on every
@@ -133,30 +134,120 @@ class VisdialDatasetBase:
 
 class VisdialGenDataset(VisdialDatasetBase):
     """Generative dataset (modes of dataloader_visdial_gen.py:59); this
-    slice serves ``vd_gen_val``."""
+    port serves ``vd_eval_val``, ``vd_gen_val`` and ``vd_eval_test``."""
 
     def __init__(self, config: GSTConfig, tokenizer: BertTokenizer,
                  mode: str = "vd_gen_val",
                  reader: Optional[FeatureStoreReader] = None):
         assert mode in ("vd_train", "vd_eval_val", "vd_gen_val",
                         "vd_eval_test")
-        if mode != "vd_gen_val":
-            raise NotImplementedError(_NOT_PORTED[mode])
+        if mode == "vd_train":
+            raise NotImplementedError(NOT_PORTED_TRAIN)
         super().__init__(config, tokenizer, reader)
         self.mode = mode
 
     def __len__(self) -> int:
-        return self._num_points(self.data_val, self.config.num_val_samples,
-                                self.mode)
+        if self.mode in ("vd_eval_val", "vd_gen_val"):
+            return self._num_points(self.data_val,
+                                    self.config.num_val_samples, self.mode)
+        return len(self.data_test["dialogs"])
 
     def _data(self):
-        return self.data_train if self.config.overfit else self.data_val
+        if self.mode in ("vd_eval_val", "vd_gen_val"):
+            return self.data_train if self.config.overfit else self.data_val
+        return self.data_test
 
     def __getitem__(self, index: int, seed: Optional[int] = None):
         rng = np.random.RandomState(
             seed if seed is not None else np.random.randint(2**31))
-        dialog = self._data()["dialogs"][index]
-        return self._gen_val_item(dialog, dialog["image_id"], rng)
+        data = self._data()
+        dialog = data["dialogs"][index]
+        q_cache, a_cache = self._caches(data)
+        img_id = dialog["image_id"]
+        if self.mode == "vd_eval_val":
+            return self._eval_val_item(index, dialog, q_cache, a_cache,
+                                       img_id, rng)
+        if self.mode == "vd_gen_val":
+            return self._gen_val_item(dialog, img_id, rng)
+        return self._eval_test_item(dialog, q_cache, a_cache, img_id, rng)
+
+    def _eval_val_item(self, index, dialog, q_cache, a_cache, img_id, rng):
+        """[10 rounds x num_options] ranking inputs + gt indices/relevance
+        (dataloader_visdial_gen.py:295-458)."""
+        num_options = self.num_options
+        caption = self.tokenizer.encode(dialog["caption"])
+        full = [[caption]]
+        gt_option_inds = []
+        gt_relevance = None
+        all_ctx, all_opt = [], []
+        # under the random_token attack the eval dataset masks history
+        # tokens with mask_prob (dataloader_visdial_gen.py:387)
+        mask_prob = (self.config.mask_prob
+                     if self.config.attack == "random_token"
+                     and getattr(self, "attack_mode", False) else 0)
+        for rnd, utt in enumerate(dialog["dialog"]):
+            fu = full[-1].copy()
+            ctx = full[-1].copy() + [q_cache[utt["question"]]]
+            fu.append(q_cache[utt["question"]])
+            fu.append(a_cache[utt["answer"]])
+            gt_ind = utt["gt_index"]
+            option_inds = [gt_ind] + [
+                k for k in range(100) if k != gt_ind][: num_options - 1]
+            gt_option_inds.append(0)
+            answer_options = [utt["answer_options"][k] for k in option_inds]
+            assert answer_options[0] == utt["answer"]
+            if self.dense_val is not None and \
+                    rnd == self.dense_val[index]["round_id"] - 1:
+                rel = np.asarray(self.dense_val[index]["gt_relevance"],
+                                 dtype=np.float32)
+                gt_relevance = rel[np.asarray(option_inds)]
+            all_ctx.append([ctx] * num_options)
+            all_opt.append([[a_cache[o][: self.max_utt_len - 2]]
+                            for o in answer_options])
+            full.append(fu)
+
+        item = self._encode_option_grid(all_ctx, all_opt, rng,
+                                        mask_prob=mask_prob)
+        item["gt_option_inds"] = np.asarray(gt_option_inds, dtype=np.int64)
+        item["image_id"] = np.asarray([img_id], dtype=np.int64)
+        if self.dense_val is not None:
+            item["round_id"] = np.asarray(
+                [self.dense_val[index]["round_id"]], dtype=np.int64)
+            item["gt_relevance"] = gt_relevance
+        item.update(self._image_item(img_id, mask_prob=0, rng=rng,
+                                     with_targets=False))
+        return item
+
+    def _encode_option_grid(self, all_ctx, all_opt, rng, mask_prob=0.0):
+        rounds = len(all_ctx)
+        n_opt = len(all_ctx[0])
+        cols = {k: [] for k in (
+            "enc_input_ids", "enc_segments", "enc_sep_indices",
+            "enc_mlm_labels", "enc_hist_len", "enc_att_mask",
+            "dec_input_ids", "dec_att_mask")}
+        for j in range(rounds):
+            row = {k: [] for k in cols}
+            for k in range(n_opt):
+                tok, seg, sep, mlm, att = encode_input(
+                    all_ctx[j][k], 1, self.CLS, self.SEP, self.MASK,
+                    self.PAD, max_seq_len=self.max_seq_len,
+                    mask_prob=mask_prob, rng=rng)
+                dtok, _, _, _, datt = encode_input(
+                    all_opt[j][k], 1, self.CLS, self.SEP, self.MASK,
+                    self.PAD, max_seq_len=self.max_utt_len, mask_prob=0,
+                    rng=rng)
+                row["enc_input_ids"].append(tok)
+                row["enc_segments"].append(seg)
+                row["enc_sep_indices"].append(sep)
+                row["enc_mlm_labels"].append(mlm)
+                row["enc_hist_len"].append(
+                    np.asarray([len(all_ctx[j][k]) - 1], dtype=np.int64))
+                row["enc_att_mask"].append(att)
+                row["dec_input_ids"].append(dtok)
+                row["dec_att_mask"].append(datt)
+            for k in cols:
+                cols[k].append(np.stack(row[k]))
+        return {k: np.stack(v) for k, v in cols.items()}
 
     def _gen_val_item(self, dialog, img_id, rng):
         """Caption-only context + [CLS] decoder seed
@@ -176,22 +267,142 @@ class VisdialGenDataset(VisdialDatasetBase):
         item["dec_att_mask"] = np.asarray([1.0], dtype=np.float32)
         return item
 
+    def _eval_test_item(self, dialog, q_cache, a_cache, img_id, rng):
+        """Last round x 100 options (dataloader_visdial_gen.py:507-603)."""
+        assert self.num_options == 100
+        ctx = [self.tokenizer.encode(dialog["caption"])]
+        for rnd, utt in enumerate(dialog["dialog"]):
+            ctx.append(q_cache[utt["question"]])
+            if rnd != len(dialog["dialog"]) - 1:
+                ctx.append(a_cache[utt["answer"]])
+        all_ctx = [[ctx] * 100]
+        all_opt = [[[a_cache[o][: self.max_utt_len - 2]]
+                    for o in dialog["dialog"][-1]["answer_options"]]]
+        item = self._encode_option_grid(all_ctx, all_opt, rng)
+        item["image_id"] = np.asarray([img_id], dtype=np.int64)
+        item["round_id"] = np.asarray([dialog["round_id"]], dtype=np.int64)
+        item.update(self._image_item(img_id, mask_prob=0, rng=rng,
+                                     with_targets=False))
+        return item
 
-class VisdialDiscDataset:
-    """Discriminative dataset (dataloader_visdial_disc.py:10-475): not
-    ported yet."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED["disc"])
+class VisdialDiscDataset(VisdialDatasetBase):
+    """Discriminative dataset (dataloader_visdial_disc.py:10-475); this
+    port serves ``vd_eval_val`` and ``vd_eval_test``."""
+
+    def __init__(self, config: GSTConfig, tokenizer: BertTokenizer,
+                 mode: str = "vd_train",
+                 reader: Optional[FeatureStoreReader] = None):
+        assert mode in ("vd_train", "vd_eval_val", "vd_eval_test")
+        if mode == "vd_train":
+            raise NotImplementedError(NOT_PORTED_TRAIN)
+        super().__init__(config, tokenizer, reader)
+        self.mode = mode
+
+    def __len__(self) -> int:
+        if self.mode == "vd_eval_val":
+            return self._num_points(self.data_val,
+                                    self.config.num_val_samples, self.mode)
+        return len(self.data_test["dialogs"])
+
+    def _data(self):
+        if self.mode == "vd_eval_val":
+            return self.data_train if self.config.overfit else self.data_val
+        return self.data_test
+
+    def __getitem__(self, index: int, seed: Optional[int] = None):
+        rng = np.random.RandomState(
+            seed if seed is not None else np.random.randint(2**31))
+        data = self._data()
+        dialog = data["dialogs"][index]
+        q_cache, a_cache = self._caches(data)
+        img_id = dialog["image_id"]
+        if self.mode == "vd_eval_val":
+            return self._eval_item(index, dialog, q_cache, a_cache, img_id,
+                                   rng)
+        return self._test_item(dialog, q_cache, a_cache, img_id, rng)
+
+    def _image_keys(self, img_id, rng):
+        """The discriminative items' region keys
+        (dataloader_visdial_disc.py:381-392)."""
+        features, num_boxes, boxes, _, image_target = self.reader[img_id]
+        feat, spat, img_mask, img_target, img_label = encode_image_input(
+            features, num_boxes, boxes, image_target,
+            max_regions=self.max_regions, mask_prob=0, rng=rng)
+        return dict(image_feat=feat, image_loc=spat, image_mask=img_mask,
+                    image_target=img_target, image_label=img_label)
+
+    def _encode_options(self, options, rng):
+        """Each option's pruned full sequence, encoded without masking."""
+        cfg = self.config
+        cols = {k: [] for k in ("tokens", "segments", "sep_indices", "mask",
+                                "hist_len")}
+        for option in options:
+            opt, start_seg = prune_rounds(option, cfg.visdial_tot_rounds)
+            tok, seg, sep, mlm, _ = encode_input(
+                opt, start_seg, self.CLS, self.SEP, self.MASK, self.PAD,
+                max_seq_len=cfg.max_seq_len, mask_prob=0, rng=rng)
+            cols["tokens"].append(tok)
+            cols["segments"].append(seg)
+            cols["sep_indices"].append(sep)
+            cols["mask"].append(mlm)
+            cols["hist_len"].append(np.asarray([len(opt) - 1],
+                                               dtype=np.int64))
+        return {k: np.stack(v) for k, v in cols.items()}
+
+    def _eval_item(self, index, dialog, q_cache, a_cache, img_id, rng):
+        """[10 x num_options] full-sequence options
+        (dataloader_visdial_disc.py:290-401)."""
+        num_options = self.num_options
+        utterances = [[self.tokenizer.encode(dialog["caption"])]]
+        gt_option_inds, options_all = [], []
+        gt_relevance = None
+        for rnd, utt in enumerate(dialog["dialog"]):
+            cur = utterances[-1].copy()
+            cur.append(q_cache[utt["question"]])
+            gt_ind = utt["gt_index"]
+            option_inds = [gt_ind] + [
+                k for k in range(100) if k != gt_ind][: num_options - 1]
+            gt_option_inds.append(0)
+            answer_options = [utt["answer_options"][k] for k in option_inds]
+            assert answer_options[0] == utt["answer"]
+            if self.dense_val is not None and \
+                    rnd == self.dense_val[index]["round_id"] - 1:
+                rel = np.asarray(self.dense_val[index]["gt_relevance"],
+                                 dtype=np.float32)
+                gt_relevance = rel[np.asarray(option_inds)]
+            options_all.append(
+                [cur.copy() + [a_cache[o]] for o in answer_options])
+            cur.append(a_cache[utt["answer"]])
+            utterances.append(cur)
+
+        rows = [self._encode_options(opts, rng) for opts in options_all]
+        item = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+        item["gt_option_inds"] = np.asarray(gt_option_inds, dtype=np.int64)
+        if self.dense_val is not None:
+            item["round_id"] = np.asarray(
+                [self.dense_val[index]["round_id"]], dtype=np.int64)
+            item["gt_relevance"] = gt_relevance
+        item["image_id"] = np.asarray([img_id], dtype=np.int64)
+        item.update(self._image_keys(img_id, rng))
+        return item
+
+    def _test_item(self, dialog, q_cache, a_cache, img_id, rng):
+        """Last round x 100 options (dataloader_visdial_disc.py:403-475)."""
+        ctx = [self.tokenizer.encode(dialog["caption"])]
+        for rnd, utt in enumerate(dialog["dialog"]):
+            ctx.append(q_cache[utt["question"]])
+            if rnd != len(dialog["dialog"]) - 1:
+                ctx.append(a_cache[utt["answer"]])
+        options = [ctx.copy() + [a_cache[o]]
+                   for o in dialog["dialog"][-1]["answer_options"]]
+        item = {k: v[None]
+                for k, v in self._encode_options(options, rng).items()}
+        item["image_id"] = np.asarray([img_id], dtype=np.int64)
+        item["round_id"] = np.asarray([dialog["round_id"]], dtype=np.int64)
+        item.update(self._image_keys(img_id, rng))
+        return item
 
 
-_NOT_PORTED = {
-    "vd_train": "VisDial mode vd_train is ported with training "
-                "(ROADMAP queue 1 item 5)",
-    "vd_eval_val": "VisDial mode vd_eval_val is ported with evaluation "
-                   "(ROADMAP queue 1 item 4)",
-    "vd_eval_test": "VisDial mode vd_eval_test is ported with evaluation "
-                    "(ROADMAP queue 1 item 4)",
-    "disc": "VisdialDiscDataset is ported with evaluation and training "
-            "(ROADMAP queue 1 items 4-5)",
-}
+NOT_PORTED_TRAIN = ("VisDial mode vd_train is ported with training "
+                    "(ROADMAP queue 1 item 5)")

@@ -5,7 +5,9 @@ Parameter layout is the reference EncoderDecoderModel's:
 ``encoder.bert_pretrained.{bert,cls}``, ``vlfusion.{fc_l,fc_v}`` and
 ``decoder.decoder.{bert,lm_head}``.  Tying: encoder word embeddings ==
 decoder input embeddings (one module) == MLM-head projection; the decoder LM
-head has its own projection weight.
+head has its own projection weight.  With ``use_decoder=False`` the model is
+the discriminative encoder alone (``encoder.bert_pretrained.*``, the
+reference's enc-only checkpoints), as ``gstx/models/encdec.py:36,75``.
 """
 
 from __future__ import annotations
@@ -36,30 +38,35 @@ class GSTVisualDialog(nn.Module):
     """``GSTVisualDialog(enc_cfg, dec_cfg, device="cuda", seed=0)`` builds
     the model on ``device`` with weights from a seeded ``torch.Generator``
     (see :func:`gstx_torch.models.layers.init_weights_`); load trained
-    weights with ``load_state_dict`` afterwards."""
+    weights with ``load_state_dict`` afterwards.  ``use_decoder=False``
+    builds the encoder and its heads only (no ``vlfusion.*`` or
+    ``decoder.*``)."""
 
     def __init__(self, enc_config: EncoderConfig, dec_config: DecoderConfig,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, use_decoder: bool = True):
         super().__init__()
         self.enc_config, self.dec_config = enc_config, dec_config
+        self.use_decoder = use_decoder
         dev = resolve_device(device)
         with dev:
             self.encoder = nn.Module()
             self.encoder.bert_pretrained = _BertPretrained(enc_config)
-            self.vlfusion = nn.Module()
-            self.vlfusion.fc_l = nn.Linear(enc_config.hidden_size,
-                                           enc_config.hidden_size)
-            self.vlfusion.fc_v = nn.Linear(enc_config.v_hidden_size,
-                                           enc_config.hidden_size)
-            self.decoder = nn.Module()
-            self.decoder.decoder = GSTDecoderModel(dec_config,
-                                                   self.bert.embeddings)
+            if use_decoder:
+                self.vlfusion = nn.Module()
+                self.vlfusion.fc_l = nn.Linear(enc_config.hidden_size,
+                                               enc_config.hidden_size)
+                self.vlfusion.fc_v = nn.Linear(enc_config.v_hidden_size,
+                                               enc_config.hidden_size)
+                self.decoder = nn.Module()
+                self.decoder.decoder = GSTDecoderModel(dec_config,
+                                                       self.bert.embeddings)
         gen = torch.Generator(device=dev).manual_seed(seed)
         init_weights_(self, gen, enc_config.initializer_range)
-        # the decoder's LM projection is a table, initialised as one
-        with torch.no_grad():
-            self.dec.lm_head.decoder.weight.normal_(
-                0.0, dec_config.initializer_range, generator=gen)
+        if use_decoder:
+            # the decoder's LM projection is a table, initialised as one
+            with torch.no_grad():
+                self.dec.lm_head.decoder.weight.normal_(
+                    0.0, dec_config.initializer_range, generator=gen)
 
     @property
     def bert(self) -> GSTEncoderModel:
@@ -98,6 +105,19 @@ class GSTVisualDialog(nn.Module):
         outs = self.encode(input_ids, image_feat, image_loc, token_type_ids,
                            attention_mask, image_attention_mask)
         return self.encoder.bert_pretrained.cls(*outs)
+
+    def nsp_scores(self, input_ids, image_feat, image_loc,
+                   token_type_ids=None, attention_mask=None,
+                   image_attention_mask=None):
+        """The third output of :meth:`pretrain_scores` alone ([B, 2], the
+        activation dtype), without the MLM and region heads that the
+        discriminative evaluator does not read (JAX's jit drops them from
+        its program the same way)."""
+        _, _, pooled_t, pooled_v = self.encode(
+            input_ids, image_feat, image_loc, token_type_ids,
+            attention_mask, image_attention_mask)
+        return self.encoder.bert_pretrained.cls.seq_relationship(pooled_t,
+                                                                 pooled_v)
 
     # ------------------------------------------------------------------ #
     # fusion + decoder paths
@@ -179,7 +199,8 @@ def precast_(model: GSTVisualDialog, dtype=torch.bfloat16) -> GSTVisualDialog:
     Parameter objects are kept (``p.data`` is replaced), so tying holds."""
     keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
             for p in m.parameters()}
-    keep.add(id(model.dec.lm_head.bias))
+    if model.use_decoder:
+        keep.add(id(model.dec.lm_head.bias))
     with torch.no_grad():
         for p in model.parameters():
             if id(p) not in keep and p.dtype != dtype:
@@ -208,3 +229,18 @@ def teacher_forced_nll(logits, labels, pad_id: int = 0) -> torch.Tensor:
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     return torch.where(labels == pad_id, 0.0, nll)
+
+
+def candidate_log_likelihood(logits, dec_input_ids, pad_id: int = 0
+                             ) -> torch.Tensor:
+    """Sum log-likelihood of each candidate answer under teacher forcing,
+    the generative ranking score (``gstx/models/encdec.py:254``, reference
+    evaluate_gen.py:94-107): [B] float32.  Targets are the left-shifted
+    decoder inputs; PAD targets count 0.  The log-softmax is taken in f32;
+    the caller's f32 logits are not copied, and the [B, L, V] log-softmax
+    lives only until the targets are gathered from it."""
+    targets = torch.zeros_like(dec_input_ids)
+    targets[:, :-1] = dec_input_ids[:, 1:]
+    tok = F.log_softmax(logits.float(), dim=-1).gather(
+        -1, targets[..., None])[..., 0]
+    return torch.where(targets == pad_id, 0.0, tok).sum(-1)

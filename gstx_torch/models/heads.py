@@ -57,15 +57,19 @@ class PreTrainingHeads(nn.Module):
         self.bi_seq_relationship = nn.Linear(cfg.bi_hidden_size, 2)
         self.imagePredictions = ImagePredictions(cfg)
 
-    def forward(self, sequence_t, sequence_v, pooled_t, pooled_v):
-        """Returns (prediction_t [B, L, vocab] f32, prediction_v
-        [B, R, v_target], seq_relationship [B, 2])."""
+    def seq_relationship(self, pooled_t, pooled_v):
+        """The NSP logits [B, 2] from the fused pooled outputs."""
         if self.fusion_method == "sum":
             pooled = pooled_t + pooled_v
         elif self.fusion_method == "mul":
             pooled = pooled_t * pooled_v
         else:
             raise ValueError(self.fusion_method)
+        return linear(pooled, self.bi_seq_relationship)
+
+    def forward(self, sequence_t, sequence_v, pooled_t, pooled_v):
+        """Returns (prediction_t [B, L, vocab] f32, prediction_v
+        [B, R, v_target], seq_relationship [B, 2])."""
         p = self.predictions
         h = p.transform(sequence_t)
         # the tied projection runs in f32, as the JAX embed_attend
@@ -73,5 +77,5 @@ class PreTrainingHeads(nn.Module):
             + p.bias.float()
         ip = self.imagePredictions
         prediction_v = linear(ip.transform(sequence_v), ip.decoder)
-        return prediction_t, prediction_v, linear(pooled,
-                                                  self.bi_seq_relationship)
+        return prediction_t, prediction_v, self.seq_relationship(pooled_t,
+                                                                 pooled_v)

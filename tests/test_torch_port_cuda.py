@@ -18,6 +18,9 @@ from gstx_torch.models import layers
 pytestmark = pytest.mark.cuda
 
 ABS_TOL, REL_TOL = 1e-2, 1.6e-2  # about 2 bf16 ulps, as chip_smoke.py
+# bf16 kernel-path eval scores, centred over each round's options, against
+# the f32 model's (relative error); a control with the FFN lost exceeds it
+EVAL_SCORE_TOL = 4e-2
 
 
 @pytest.fixture
@@ -518,3 +521,77 @@ def test_cli_bf16_on_the_card(dev, tmp_path, width, fused):
     assert len(records) > 0
     assert (kffn.launches["fused_ffn"] > 0) == fused
     assert (kffn.launches["fused_dense_ln"] > 0) == fused
+
+
+def test_evaluate_gen_bf16_on_the_card_matches_cpu_f32(dev, monkeypatch):
+    """The generative evaluator with a width-128 model (both fused kernels
+    take it) in bf16 on the card: its scores, centred over each round's
+    options, within EVAL_SCORE_TOL relative of the same model's f32 scores
+    on the CPU, while a control (every fused_ffn's FFN branch zeroed)
+    exceeds it; the fused kernels launched, and finite metrics."""
+    import copy
+
+    import numpy as np
+
+    from gstx_torch.core.config import DecoderConfig, EncoderConfig
+    from gstx_torch.eval import rank_gen
+    from gstx_torch.models.encdec import GSTVisualDialog, precast_
+
+    enc = EncoderConfig(vocab_size=160, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        v_feature_size=16, v_hidden_size=128,
+                        v_num_hidden_layers=1, v_num_attention_heads=2,
+                        v_intermediate_size=128, bi_hidden_size=128,
+                        bi_num_attention_heads=2, v_biattention_id=(0,),
+                        t_biattention_id=(1,))
+    dec = DecoderConfig(vocab_size=160, hidden_size=128, num_hidden_layers=1,
+                        num_attention_heads=2, intermediate_size=256)
+    ref = GSTVisualDialog(enc, dec, device="cpu", seed=3)
+    model = precast_(copy.deepcopy(ref).to(dev), torch.bfloat16)
+    rng = np.random.RandomState(0)
+    b, rounds, options, seq, utt, regions = 2, 3, 10, 40, 8, 6
+    ids = rng.randint(104, 160, size=(b, rounds, options, seq))
+    ids[..., 0], ids[..., 30:] = 101, 0
+    dec_ids = rng.randint(104, 160, size=(b, rounds, options, utt))
+    dec_ids[..., 0], dec_ids[..., 5], dec_ids[..., 6:] = 101, 102, 0
+    batch = {
+        "enc_input_ids": ids, "enc_segments": np.zeros_like(ids),
+        "enc_att_mask": (ids != 0).astype(np.float32),
+        "dec_input_ids": dec_ids,
+        "dec_att_mask": (dec_ids != 0).astype(np.float32),
+        "enc_image_feat": rng.rand(b, regions, 16).astype(np.float32),
+        "enc_image_loc": rng.rand(b, regions, 5).astype(np.float32),
+        "enc_image_mask": np.ones((b, regions), np.float32),
+        "gt_option_inds": np.zeros((b, rounds), np.int64),
+        "round_id": np.ones((b, 1), np.int64),
+        "gt_relevance": rng.rand(b, options).astype(np.float32)}
+    def centred(m, where):
+        text, images, _ = rank_gen.flatten_gen(batch)
+        t, i = rank_gen.batch_to_device(text, images, where, m.dtype,
+                                        ("enc_image_feat", "enc_image_loc"))
+        with torch.inference_mode():
+            s = rank_gen.make_chunk_scorer(m)(rank_gen.chunk_inputs(
+                t, i, 0, b * rounds * options,
+                rounds * options)).float().cpu().reshape(-1, options)
+        return s - s.mean(1, keepdim=True)
+
+    def err(got):
+        return float((got - want).norm() / want.norm())
+    want = centred(ref, "cpu")
+    sound = err(centred(model, dev))
+    real_ffn = kffn.fused_ffn
+
+    def ffn_lost(x, w1, b1, w2, b2, *ln, **eps):
+        return real_ffn(x, w1, b1, torch.zeros_like(w2),
+                        torch.zeros_like(b2), *ln, **eps)
+    with monkeypatch.context() as m:
+        m.setattr(kffn, "fused_ffn", ffn_lost)
+        control = err(centred(model, dev))
+    kffn.reset_launches()
+    metrics = rank_gen.evaluate_gen(model, [batch], chunk_size=30)
+    assert kffn.launches["fused_ffn"] > 0 and \
+        kffn.launches["fused_dense_ln"] > 0
+    print(f"centred scores, relative error to the CPU f32 model: bf16 "
+          f"kernel path {sound:.4g}, control {control:.4g}")
+    assert sound <= EVAL_SCORE_TOL < control, (sound, control)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics

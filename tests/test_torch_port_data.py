@@ -300,12 +300,21 @@ def test_cc12m_items_match_jax(data_env, mode):
 @pytest.mark.parametrize("mode", ["vd_train", "vd_eval_val",
                                   "vd_eval_test"])
 def test_other_visdial_modes_name_their_roadmap_item(data_env, mode):
+    """vd_train, of either dataset, raises naming the ROADMAP item that
+    ports it (training); the evaluation modes, ported with evaluation,
+    serve (their items: tests/test_torch_port_eval.py)."""
     _, tcfg_ = data_env
     tok = ttok.BertTokenizer(vocab_path=tcfg_.vocab_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvisdial.VisdialDiscDataset(tcfg_, tok)
+    if mode == "vd_train":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 5"):
+            tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 5"):
+            tvisdial.VisdialDiscDataset(tcfg_, tok)
+        return
+    assert len(tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)) == 4
+    assert len(tvisdial.VisdialDiscDataset(tcfg_, tok, mode=mode)) == 4
 
 
 def test_prune_rounds_matches_jax():

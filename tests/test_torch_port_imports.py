@@ -40,6 +40,10 @@ def test_scan_covers_the_package():
     assert "gstx_torch/kernels/ffn.py" in names
     assert "gstx_torch/cli/generate.py" in names
     assert "gstx_torch/data/tokenizer.py" in names
+    assert {"gstx_torch/eval/metrics.py", "gstx_torch/eval/rank_gen.py",
+            "gstx_torch/eval/rank_disc.py", "gstx_torch/cli/evaluate_gen.py",
+            "gstx_torch/cli/evaluate_disc.py",
+            "gstx_torch/core/logging.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
