@@ -19,7 +19,13 @@
            fused_ffn, fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
-           5e-3 + 1e-4 * |plain|.  Device times (CUDA events around 20
+           5e-3 + 1e-4 * |plain|.  Gradient rows for fused_ffn and
+           fused_dense_ln at phase 8's training shapes (18,432 text rows
+           x 768, F 3,072; BiOutput-t 18,432 x 1,024 -> 768; 2,664 visual
+           rows x 1,024): the autograd Function (kernel forward, f32
+           recompute backward) against autograd through the plain version,
+           every gradient within the bf16 tolerance, with the backward's
+           time beside the forward's.  Device times (CUDA events around 20
            back-to-back calls queued behind a device sleep, median of 5,
            after 3 warm-up calls) of the kernel, the plain version and one
            PyTorch call of the same function (for the attention kernels
@@ -89,11 +95,31 @@
            of EVAL_SCORE_TOL, and two controls on the kernel path that must
            exceed it (every fused_ffn's FFN branch zeroed; every
            fused_dense_ln's projection zeroed), beside the bf16 unfused
-           model's reading.
+           model's reading;
+  phase 8  the port's training CLI (gstx_torch.cli.train_gen.main)
+           in-process at full width, bf16 compute over f32 parameters and
+           optimizer state, -remat_policy small, batch 72, warm-started
+           from phase 6's .ckpt, on 576 synthetic dialogs over phase 6's
+           store: (a) the student, -mode cc12m_train -chunk 1
+           -select_data with the reference dropout, 1 warm-up and 5 timed
+           steps with -save_every_steps 3: no fused launch (JAX's gate
+           declines a site whose dropout is active), each step's loss
+           finite, ms/step, examples/s, MFU (the step's matmul FLOPs from
+           shapes, 3x the forward, over 989 TFLOP/s), peak memory, each
+           checkpoint's size and save time; (c) -continue from (a)'s
+           rotating checkpoint for 2 steps, starting at its stored step 6;
+           (b) the teacher, -mode vd_train -model enc_dec_a with every
+           dropout 0: 2 steps of 30 fused_ffn and 30 fused_dense_ln
+           launches (the encoder forward's; 'small' recomputes no fused
+           site), the first step's loss and per-tensor gradient norms
+           against the same step under -no_use_pallas within
+           TRAIN_LOSS_TOL / TRAIN_GRAD_NORM_TOL, and a control whose
+           dense_ln backward loses the residual's gradient, which must
+           exceed the norms' limit.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
-after a profiled round ran 26-50% slower.  Phases 6 and 7 write their
-inputs to one temporary directory.  Prints the kernels JSON line,
+after a profiled round ran 26-50% slower.  Phases 6, 7 and 8 write their
+inputs and checkpoints to one temporary directory.  Prints the kernels JSON line,
 the card line, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero with no result; so does a machine without CUDA or a
 directory without gstx_torch.
@@ -116,6 +142,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 ABS_TOL, REL_TOL = 1e-2, 1.6e-2
 # f32-unfused vs bf16-kernel model on a small input: relative Frobenius
 # error of the decoder memory K/V and of the logits (bf16 rounding through
@@ -175,8 +202,8 @@ def time_ms(fn, iters=20, warmup=3, repeats=5):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -389,7 +416,94 @@ def kernel_phase(torch, kffn, kattn, kdecode):
     entries.append(("fused_ffn", "gstx/kernels/ffn.py:198", rows))
     entries += attention_rows(torch, F, kattn, randn, held)
     entries.append(decode_rows(torch, F, kdecode, gen, held))
-    return entries
+    return entries, grad_rows(torch, kffn, held)
+
+
+# (kernel, label, dims): the training step's shapes at batch 72 (phase 8):
+# 18,432 text rows (72 x 256) and 2,664 visual rows (72 x 37)
+GRAD_SHAPES = [("fused_ffn", "train text 18432x768x3072", (18432, 768, 3072)),
+               ("fused_ffn", "train visual 2664x1024x1024",
+                (2664, 1024, 1024)),
+               ("fused_dense_ln", "train text 18432x768->768",
+                (18432, 768, 768)),
+               ("fused_dense_ln", "train BiOutput-t 18432x1024->768",
+                (18432, 1024, 768)),
+               ("fused_dense_ln", "train visual 2664x1024->1024",
+                (2664, 1024, 1024))]
+
+
+def grad_rows(torch, kffn, held):
+    """Phase 2's gradient rows: at each training shape, the autograd
+    Function (kernel forward, f32 recompute backward) against autograd
+    through the plain version on the same inputs and cotangent, upcast to
+    f32 (the bf16 plain version would round the FFN hidden's gradient to
+    bf16 in its graph: at 18,432 rows its weight gradients drift by
+    whole bf16 steps where the sum cancels), every gradient within the
+    phase's tolerance, and the forward against the bf16 plain version.
+    Times: the forward (kernel, plain, the library composite, bound as
+    the rows above) and the backward (graph kept; the plain version's
+    backward on bf16 inputs beside it), whose bound counts the recompute's
+    f32 products, three times the forward's (each product again, then two
+    for its gradients), at 67 TFLOP/s, or its bytes (the cotangent and the
+    inputs read, their gradients written).  Returns {kernel: [rows]}."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    randn = make_randn(torch, torch.Generator(device=dev).manual_seed(8))
+    bf = torch.bfloat16
+    out = {"fused_ffn": [], "fused_dense_ln": []}
+    for name, label, (m, a, b) in GRAD_SHAPES:
+        if name == "fused_ffn":
+            args = ffn_inputs(torch, randn, m, a, b)
+            fn, plain = kffn.fused_ffn, kffn.ffn_plain
+            x, w1, b1, w2, b2, g, be = args
+            lib = lambda: F.layer_norm(F.linear(F.gelu(F.linear(
+                x, w1, b1.to(bf))), w2, b2.to(bf)) + x, (a,), g.to(bf),
+                be.to(bf), 1e-12)
+            flops = 4 * m * a * b
+            nbytes = 2 * (2 * m * a + 2 * a * b) + 4 * (b + 3 * a)
+        else:
+            args = dense_ln_inputs(torch, randn, m, a, b)
+            fn, plain = kffn.fused_dense_ln, kffn.dense_ln_plain
+            x, w, bias, res, g, be = args
+            lib = lambda: F.layer_norm(F.linear(x, w, bias.to(bf)) + res,
+                                       (b,), g.to(bf), be.to(bf), 1e-12)
+            flops = 2 * m * a * b
+            nbytes = 2 * (m * a + a * b + 2 * m * b) + 4 * 3 * b
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        y = fn(*leaves)
+        cot = randn(*y.shape)
+        got = torch.autograd.grad(y, leaves, cot, retain_graph=True)
+        wide = [t.detach().float().requires_grad_(True) for t in args]
+        want = torch.autograd.grad(plain(*wide), wide, cot.float())
+        del wide
+        yp = plain(*leaves)
+        errs = [held(name, f"{label} forward", y.detach(), yp.detach())] + [
+            held(name, f"{label} grad {i}", gr, w_)
+            for i, (gr, w_) in enumerate(zip(got, want))]
+        bms, by = bound(flops, nbytes)
+        # backward: the cotangent and the inputs read, a gradient of each
+        # input written
+        bwd_bytes = 2 * y.numel() + 2 * sum(t.numel() * t.element_size()
+                                            for t in args)
+        bwd_bms, bwd_by = bound(3 * flops, bwd_bytes, PEAK_F32_FLOPS)
+        row = dict(shape=label, max_abs_err=max(errs),
+                   grad_max_abs_err=errs[1:],
+                   ms=time_ms(lambda: fn(*args), iters=5),
+                   plain_ms=time_ms(lambda: plain(*args), iters=5),
+                   library_ms=time_ms(lib, iters=5),
+                   bound_ms=bms, bound_by=by,
+                   backward_ms=time_ms(lambda: torch.autograd.grad(
+                       y, leaves, cot, retain_graph=True), iters=3,
+                       warmup=1, repeats=3),
+                   plain_backward_ms=time_ms(lambda: torch.autograd.grad(
+                       yp, leaves, cot, retain_graph=True), iters=3,
+                       warmup=1, repeats=3),
+                   backward_bound_ms=bwd_bms, backward_bound_by=bwd_by)
+        out[name].append(row)
+        log(f"[phase 2] {name} backward {label}: " + json.dumps(row))
+        del y, yp, got, want, leaves
+    return out
 
 
 def padding_mask(torch, gen, b, n, lo):
@@ -1333,6 +1447,269 @@ def eval_phase(torch, np, counters, card, tmp, vocab, ckpts):
     return gen_counts, disc_counts
 
 
+TRAIN_BATCH = 72      # the reference's batch (options.py)
+TRAIN_DIALOGS = 576   # 8 steps an epoch at batch 72
+TRAIN_UTT = 25        # -max_utt_len
+# phase 8 (b): the first step's loss (relative) and its per-tensor
+# gradient norms (largest relative difference over the tensors), the bf16
+# kernel path against the bf16 unfused one; a control whose kernel
+# backward loses the residual's gradient must exceed the norms' limit
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_NORM_TOL = 0.5
+
+
+def train_flops(enc, dec, b, l, r, t):
+    """The matmul FLOPs of one training step's forward at batch ``b``,
+    context ``l``, ``r`` regions and ``t`` decoder tokens, counted from
+    the shapes: every weight product and attention product (causal ones
+    counted whole), the LM head included; embeddings' lookups not.  The
+    step is taken as 3x this (forward, and a backward of twice the
+    forward); recomputation is not counted."""
+    d, f, dv, fv, bi = (enc.hidden_size, enc.intermediate_size,
+                        enc.v_hidden_size, enc.v_intermediate_size,
+                        enc.bi_hidden_size)
+    n_co = len(enc.v_biattention_id)
+    text = l * (2 * (4 * d * d + 2 * d * f) + 4 * l * d)
+    vis = r * (2 * (4 * dv * dv + 2 * dv * fv) + 4 * r * dv)
+    co = (r * (2 * 3 * dv * bi + 4 * l * bi + 2 * bi * dv + 4 * dv * fv)
+          + l * (2 * 3 * d * bi + 4 * r * bi + 2 * bi * d + 4 * d * f))
+    emb = r * 2 * (enc.v_feature_size + enc.v_loc_size) * dv
+    fusion = r * 2 * dv * d + l * 2 * d * d
+    m = r + l
+    dd, df = dec.hidden_size, dec.intermediate_size
+    dec_layer = (t * (2 * 4 * dd * dd + 4 * t * dd + 2 * dd * dd
+                      + 4 * m * dd + 4 * dd * df) + m * 2 * 2 * dd * dd)
+    per_row = (enc.num_hidden_layers * text + enc.v_num_hidden_layers * vis
+               + n_co * co + emb + fusion
+               + dec.num_hidden_layers * dec_layer
+               + t * 2 * dd * dec.vocab_size)
+    return b * per_row
+
+
+def train_inputs(np, tmp, vocab):
+    """Phase 8's data in ``tmp``: TRAIN_DIALOGS synthetic 10-round dialogs
+    over phase 6's store (images 1000..1199, cycled), once as the
+    student's generated-dialog chunk (answers with a perplexity drawn in
+    [0, 100), the selection threshold 50) with the store linked under the
+    chunk's name, once as a VisDial v1.0 train JSON (question and answer
+    tables, 100 options a round), and the zero-dropout model JSONs of part
+    (b).  Words come from phase 6's vocab.  Returns (common flags, the
+    student's flags, the teacher's flags)."""
+    rng = np.random.RandomState(8)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+
+    def sample(lo, hi):
+        return " ".join(words[j] for j in
+                        rng.randint(0, len(words), rng.randint(lo, hi + 1)))
+    ids = [1000 + i % CLI_IMAGES for i in range(TRAIN_DIALOGS)]
+    root = os.path.join(tmp, "train") + "/"
+    os.makedirs(root + "iter1")
+    os.symlink(os.path.join(tmp, "feats.store"),
+               root + "cc12m_img_feat_0.store")
+    json.dump([{"image_id": i, "url": f"http://example.invalid/{i}.jpg",
+                "caption": sample(8, 16),
+                "dialog": [{"question": sample(4, 8),
+                            "answer": sample(1, 6),
+                            "answer_ppl": float(rng.rand() * 100)}
+                           for _ in range(ROUNDS)]} for i in ids],
+              open(root + "iter1/cc12m_dialogs_0.txt", "w"))
+    questions = [sample(4, 8) for _ in range(3000)]
+    answers = [sample(1, 6) for _ in range(3000)]
+
+    def rnd():
+        opts = rng.choice(len(answers), EVAL_OPTIONS, replace=False)
+        gt = int(rng.randint(EVAL_OPTIONS))
+        return {"question": int(rng.randint(len(questions))),
+                "answer": int(opts[gt]), "gt_index": gt,
+                "answer_options": [int(o) for o in opts]}
+    visdial = {"data": {"questions": questions, "answers": answers,
+                        "dialogs": [{"image_id": i, "caption": sample(8, 14),
+                                     "dialog": [rnd() for _ in
+                                                range(ROUNDS)]}
+                                    for i in ids]}}
+    json.dump(visdial, open(root + "visdial_train.json", "w"))
+    no_dropout = {"hidden_dropout_prob": 0.0,
+                  "attention_probs_dropout_prob": 0.0}
+    json.dump(dict(no_dropout, v_hidden_dropout_prob=0.0,
+                   v_attention_probs_dropout_prob=0.0),
+              open(root + "enc_no_dropout.json", "w"))
+    json.dump(no_dropout, open(root + "dec_no_dropout.json", "w"))
+    common = ["-vocab_path", os.path.join(tmp, "vocab.txt"),
+              "-start_path", os.path.join(tmp, "model.ckpt"),
+              "-dtype", "bfloat16", "-batch_size", str(TRAIN_BATCH),
+              "-max_seq_len", "256", "-max_utt_len", str(TRAIN_UTT),
+              "-max_regions", "37", "-remat_policy", "small",
+              "-num_workers", "4", "-log_every", "1"]
+    student = ["-mode", "cc12m_train", "-chunk", "1", "-select_data",
+               "-cc12m_image_feats", root, "-cc12m_processed_train", root]
+    teacher = ["-mode", "vd_train", "-model", "enc_dec_a",
+               "-visdial_processed_train", root + "visdial_train.json",
+               "-visdial_processed_val", root + "visdial_train.json",
+               "-visdial_processed_test", root + "visdial_train.json",
+               "-visdial_image_feats", os.path.join(tmp, "feats.store"),
+               "-model_enc_config", root + "enc_no_dropout.json",
+               "-model_dec_config", root + "dec_no_dropout.json"]
+    return common, student, teacher
+
+
+def train_run(torch, counters, tag, argv, steps, card):
+    """One in-process run of the training CLI with every launch counter
+    set to 0 just before and read just after; every step's loss must be
+    finite.  Returns (stats, counts, peak GiB, wall seconds)."""
+    import math
+
+    from gstx_torch.cli import train_gen
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    model, optimizer = train_gen.main(argv, max_steps=steps, device="cuda",
+                                      stats_out=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, optimizer
+    torch.cuda.empty_cache()
+    if len(stats["losses"]) != steps or not all(
+            math.isfinite(x) for x in stats["losses"]):
+        raise AssertionError(f"{tag}: losses {stats['losses']}")
+    log(f"[{tag}] {steps} steps from iteration {stats['start_iter_id']}: "
+        f"losses {[round(x, 4) for x in stats['losses']]}, step seconds "
+        f"{[round(x, 4) for x in stats['step_seconds']]}, main() "
+        f"{wall:.2f} s wall; launches {counts}; peak device memory "
+        f"{peak:.2f} GiB; on {card}")
+    return stats, counts, peak, wall
+
+
+def grad_norm_err(a, b):
+    """The largest relative difference of the per-tensor gradient norms
+    over the tensors both runs have (relative to the reference's norm).
+    The attention key biases are left out: softmax ignores a shift shared
+    by every key, so their exact gradient is 0 and both readings are
+    rounding noise."""
+    if set(a) != set(b):
+        raise AssertionError("the two runs' gradients name other tensors")
+    return max((abs(a[k] - b[k]) / max(b[k], 1e-12), k) for k in b
+               if not re.search(r"\.key\d?\.bias$", k))
+
+
+def train_phase(torch, np, counters, card, tmp, vocab):
+    """Phase 8: the training CLI (gstx_torch.cli.train_gen.main) in-process
+    at full width: 12/6/6 encoder, 12-layer decoder, widths 768 / 1,024, a
+    30,522-word vocab, bf16 compute over f32 parameters, -remat_policy
+    small, batch 72, warm-started from phase 6's reference .ckpt, on
+    synthetic data of the real shapes.  (a) the student, cc12m_train
+    -select_data with the reference dropout: 1 warm-up and 5 timed steps,
+    no fused launch; (b) the teacher, vd_train enc_dec_a with every
+    dropout 0: 2 steps, 30 launches a step of each fused kernel, the first
+    step's loss and gradient norms against -no_use_pallas and a
+    broken-backward control; (c) -continue from (a)'s rotating checkpoint
+    for 2 steps, from its stored step.  Returns (b)'s launch counts."""
+    from gstx_torch.core.config import DecoderConfig, EncoderConfig
+    from gstx_torch.kernels import ffn as kffn
+
+    t0 = time.perf_counter()
+    common, student, teacher = train_inputs(np, tmp, vocab)
+    log(f"[phase 8] inputs written in {time.perf_counter() - t0:.2f} s; "
+        f"free disk {shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+    zero = {k: 0 for k in SOURCES}
+    steps_a = 6
+    out_a = os.path.join(tmp, "train_a")
+    stats, counts, peak, _ = train_run(
+        torch, counters, "phase 8a student", common + student + [
+            "-save_every_steps", "3", "-save_path", out_a], steps_a, card)
+    check_launches("phase 8a student", counts, zero)
+    log("[phase 8a] no fused launch, as the JAX package's gate decides: "
+        "every site's dropout is active (hidden 0.3, attention 0.1), and "
+        "maybe_fused_* decline a site where `not deterministic and "
+        "dropout_rate > 0` (gstx/kernels/ffn.py:401,419)")
+    timed = stats["step_seconds"][1:]
+    step_s = statistics.mean(timed)
+    flops = 3 * train_flops(EncoderConfig(), DecoderConfig(), TRAIN_BATCH,
+                            256, 37, TRAIN_UTT)
+    log(f"[phase 8a] {len(timed)} timed steps (after 1 warm-up): "
+        f"{step_s * 1e3:.1f} ms/step (min {min(timed) * 1e3:.1f}, max "
+        f"{max(timed) * 1e3:.1f}), {TRAIN_BATCH / step_s:.1f} examples/s, "
+        f"{flops / 1e12:.2f} TFLOP a step counted from shapes -> MFU "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f}"
+        f" TFLOP/s; peak device memory {peak:.2f} GiB; on {card}")
+    for save in stats["saves"]:
+        log(f"[phase 8a] checkpoint {os.path.basename(save['path'])}: "
+            f"{save['bytes'] / 1e9:.3f} GB in {save['seconds']:.2f} s")
+    # the rotating checkpoint holds the completed step count
+    step_ckpt = os.path.join(out_a, "cc12m_train_step.ckpt")
+    os.remove(os.path.join(out_a, "final.ckpt"))
+
+    # (c) resume first, so (a)'s checkpoint can go before (b) writes
+    stats_c, counts_c, _, _ = train_run(
+        torch, counters, "phase 8c resume", common + student + [
+            "-save_every_steps", "3", "-start_path", step_ckpt, "-continue",
+            "-save_path", os.path.join(tmp, "train_c")], 2, card)
+    if stats_c["start_iter_id"] != steps_a:
+        raise AssertionError(f"resumed at {stats_c['start_iter_id']}, not "
+                             f"at the stored step {steps_a}")
+    check_launches("phase 8c resume", counts_c, zero)
+    log(f"[phase 8c] resumed at the stored step {steps_a}")
+    shutil.rmtree(out_a)
+    shutil.rmtree(os.path.join(tmp, "train_c"))
+
+    def teacher_run(tag, extra, steps):
+        out = os.path.join(tmp, "train_b")
+        try:
+            return train_run(torch, counters, tag, common + teacher + extra
+                             + ["-save_path", out], steps, card)
+        finally:
+            kffn.enable(True)
+            shutil.rmtree(out, ignore_errors=True)
+    steps_b = 2
+    stats_b, counts_b, _, _ = teacher_run("phase 8b teacher, kernels",
+                                          ["-use_pallas"], steps_b)
+    per_step = per_forward()  # the forward's launches; 'small' adds none
+    check_launches("phase 8b teacher", counts_b, dict(
+        zero, fused_ffn=per_step * steps_b, fused_dense_ln=per_step * steps_b))
+    stats_u, counts_u, _, _ = teacher_run("phase 8b teacher, unfused",
+                                          ["-no_use_pallas"], 1)
+    check_launches("phase 8b unfused", counts_u, zero)
+
+    def residual_lost(x, w, b, residual, gamma, beta, eps):
+        return real(x, w, b, residual * 0.0, gamma, beta, eps)
+    real = kffn.dense_ln_recompute
+    kffn.dense_ln_recompute = residual_lost
+    try:
+        stats_x, _, _, _ = teacher_run(
+            "phase 8b control: dense_ln backward without the residual",
+            ["-use_pallas"], 1)
+    finally:
+        kffn.dense_ln_recompute = real
+    loss_err = abs(stats_b["losses"][0] - stats_u["losses"][0]) / \
+        abs(stats_u["losses"][0])
+    norms_b, norms_u = stats_b["grad_norms"], stats_u["grad_norms"]
+    norm_err, worst = grad_norm_err(norms_b, norms_u)
+    control, worst_x = grad_norm_err(stats_x["grad_norms"], norms_u)
+    log(f"[phase 8b] largest gradient-norm difference at {worst}: "
+        f"{norms_b[worst]:.6g} against {norms_u[worst]:.6g} (the largest "
+        f"norm {max(norms_u.values()):.6g}); the control's at {worst_x}")
+    log(f"[phase 8b] first step, bf16 kernel path against bf16 unfused: "
+        f"loss {stats_b['losses'][0]:.6f} / {stats_u['losses'][0]:.6f} "
+        f"(relative {loss_err:.4g}, limit {TRAIN_LOSS_TOL}); per-tensor "
+        f"gradient norms over {len(stats_u['grad_norms'])} tensors, largest "
+        f"relative difference {norm_err:.4g} (limit {TRAIN_GRAD_NORM_TOL}); "
+        f"control (dense_ln's residual gradient lost) {control:.4g}; "
+        f"kernel step seconds {[round(x, 4) for x in stats_b['step_seconds']]}"
+        f", unfused {[round(x, 4) for x in stats_u['step_seconds']]}; "
+        f"on {card}")
+    if not (loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_GRAD_NORM_TOL):
+        raise AssertionError("phase 8b: the kernel path's first step "
+                             "disagrees with the unfused one")
+    if not control > TRAIN_GRAD_NORM_TOL:
+        raise AssertionError("phase 8b: the broken-backward control passes "
+                             "the limit: the check cannot see it")
+    return counts_b
+
+
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
@@ -1374,7 +1751,7 @@ def main():
         print(text, file=sys.stderr)
     build_census(build)
 
-    entries = kernel_phase(torch, kffn, kattn, kdecode)
+    entries, grads = kernel_phase(torch, kffn, kattn, kdecode)
     counters = Counters(kffn, kattn, kdecode)
     default_counts, int8_counts, profile_last = engine_phases(
         torch, np, counters, ROUNDS, TIMED_BATCHES, card)
@@ -1382,6 +1759,7 @@ def main():
         cli_counts, vocab, ckpts = cli_phase(torch, np, counters, card, tmp)
         gen_counts, disc_counts = eval_phase(torch, np, counters, card, tmp,
                                              vocab, ckpts)
+        train_counts = train_phase(torch, np, counters, card, tmp, vocab)
     profile_last()
 
     kernels = []
@@ -1398,11 +1776,13 @@ def main():
                               "int8_attention": int8_counts[name],
                               "cli": cli_counts[name],
                               "eval_gen": gen_counts[name],
-                              "eval_disc": disc_counts[name]},
+                              "eval_disc": disc_counts[name],
+                              "train": train_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shapes=rows))
+            library_ms=main_row["library_ms"], shapes=rows,
+            backward_shapes=grads.get(name, [])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

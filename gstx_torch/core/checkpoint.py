@@ -196,19 +196,30 @@ def _strip_prefixes(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A checkpoint file's state dict: a released reference ``.ckpt``
-    (``{"model_state_dict": ...}``, possibly with DataParallel's
-    ``module.`` prefixes) or the port's own ``torch.save`` of a state
-    dict.  An orbax checkpoint directory of the JAX package raises."""
+def _refuse_directory(path: str):
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
             "package?); the port reads torch checkpoint files only.  "
             "Convert it with gstx.core.checkpoint.to_torch_state_dict and "
             "torch.save, or see ROADMAP.md (orbax checkpoints)")
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file's state dict: a released reference ``.ckpt``
+    (``{"model_state_dict": ...}``, possibly with DataParallel's
+    ``module.`` prefixes) or the port's own ``torch.save`` of a state
+    dict.  An orbax checkpoint directory of the JAX package raises."""
+    _refuse_directory(path)
     # weights_only: tensors and plain containers, no arbitrary objects
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return state_dict_of(torch.load(path, map_location="cpu",
+                                    weights_only=True))
+
+
+def state_dict_of(raw: dict) -> Dict[str, torch.Tensor]:
+    """The model state dict of a loaded checkpoint payload (its
+    ``model_state_dict``, or the payload itself), names as
+    :func:`_strip_prefixes` leaves them."""
     if "model_state_dict" in raw:
         raw = raw["model_state_dict"]
     return _strip_prefixes({k: torch.as_tensor(v) for k, v in raw.items()})
@@ -243,19 +254,75 @@ def load_checkpoint(model, path: str) -> str:
     if full:
         model.load_state_dict(sd, strict=True)
         return "full"
+    load_encoder_part(model, sd, path, seed_lm_head=True)
+    return "encoder"
+
+
+def load_encoder_part(model, sd: Dict[str, torch.Tensor], path: str,
+                      seed_lm_head: bool):
+    """Load the ``encoder.*`` names of ``sd`` into a full model, strictly
+    over the encoder's names (every one present; no name of ``sd`` unknown
+    to the model); the fusion and decoder keep their weights.  ``seed_lm_head``: copy the loaded word
+    table into the LM projection, as the reference's pretrained init does
+    when the file has no decoder."""
     own = model.state_dict()
+    enc = {k: v for k, v in sd.items() if k.startswith("encoder.")}
     missing = sorted(k for k in own
-                     if k.startswith("encoder.") and k not in sd)
+                     if k.startswith("encoder.") and k not in enc)
     unknown = sorted(k for k in sd if k not in own)
     if missing or unknown:
         raise RuntimeError(
-            f"encoder-only checkpoint {path}: missing encoder names "
+            f"checkpoint {path}: missing encoder names "
             f"{missing[:5]}{'...' if len(missing) > 5 else ''}, unknown "
             f"names {unknown[:5]}{'...' if len(unknown) > 5 else ''}")
-    model.load_state_dict(sd, strict=False)
+    model.load_state_dict(enc, strict=False)
     word = model.bert.embeddings.word_embeddings.weight
     lm = model.dec.lm_head.decoder.weight
-    if lm.shape == word.shape:
+    if seed_lm_head and lm.shape == word.shape:
         with torch.no_grad():
             lm.copy_(word)
-    return "encoder"
+
+
+# ---------------------------------------------------------------------- #
+# training checkpoints
+# ---------------------------------------------------------------------- #
+
+
+def save_checkpoint(path: str, model, optimizer, step: int):
+    """Write a training checkpoint as one torch file
+    ``{"model_state_dict": <reference names>, "optimizer_state_dict": ...,
+    "step": int}`` (the JAX package's ``save_checkpoint``,
+    ``gstx/core/checkpoint.py:33-86``, writes an orbax directory instead).
+    :func:`read_state_dict` and the JAX package's ``load_torch_checkpoint``
+    read its weights.
+
+    Written to ``path.tmp`` first, then swapped in three steps, so that at
+    every instant ``path`` or ``path.old`` holds a complete checkpoint
+    (:func:`restore_checkpoint` falls back to ``.old``)."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp, old = path + ".tmp", path + ".old"
+    torch.save({"model_state_dict": {k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()},
+                "optimizer_state_dict": optimizer.state_dict(),
+                "step": int(step)}, tmp)
+    if os.path.exists(old):
+        os.remove(old)
+    if os.path.exists(path):
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if os.path.exists(old):
+        os.remove(old)
+
+
+def restore_checkpoint(path: str) -> dict:
+    """The payload of a checkpoint file; when a kill landed inside
+    :func:`save_checkpoint`'s swap, the surviving previous copy at
+    ``.old``."""
+    path = os.path.abspath(path)
+    if not os.path.exists(path) and os.path.exists(path + ".old"):
+        print(f"[checkpoint] {path} missing after an interrupted swap; "
+              "restoring the surviving previous copy at .old")
+        path = path + ".old"
+    _refuse_directory(path)
+    return torch.load(path, map_location="cpu", weights_only=True)

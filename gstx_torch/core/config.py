@@ -140,10 +140,9 @@ class GSTConfig:
     """Full run configuration: every flag of the reference ``options.py``
     (reference ``options.py:7-106``) plus the JAX package's own knobs, so
     every flag of its CLIs parses here.  Some of those knobs have no
-    effect in the port (``remat``, ``remat_policy``, ``data_axis``,
-    ``model_axis``, ``warmup_steps``: training and meshes are not ported
-    yet); ``use_pallas`` switches the port's fused FFN / LayerNorm CUDA
-    kernels (``gstx_torch.kernels.ffn.enable``)."""
+    effect in the port (``data_axis``, ``model_axis``: meshes are not
+    ported yet); ``use_pallas`` switches the port's fused FFN / LayerNorm
+    CUDA kernels (``gstx_torch.kernels.ffn.enable``)."""
 
     # --- data input (VisDial), options.py:12-41 ---
     visdial_processed_train: str = "data/visdial/visdial_1.0_train_processed.json"
@@ -245,7 +244,8 @@ class GSTConfig:
     log_every: int = 10
     use_pallas: bool = True  # fused FFN / projection-LayerNorm kernels
     # (bf16, widths the kernels take); the flag keeps the JAX package's name
-    trace_dir: str = ""  # write a device trace of the generation loop here
+    trace_dir: str = ""  # write a device trace of the generation or
+    # training loop here
     pipeline: int = 2  # generate: batches dispatched before the oldest is
     # drained to the host
     flush_every: int = 20  # generate: append completed batches to a

@@ -187,3 +187,40 @@ def load_dialog_json(path: str):
             dialogs.extend(json.load(f))
     return dialogs
 
+
+
+def load_cc12m_chunks(config: GSTConfig, tokenizer: BertTokenizer):
+    """The student's training set (``gstx/data/cc12m.py:190-205``,
+    reference train_gen.py:160-178): for each self-training iteration n in
+    [1, iter], ``chunk`` feature stores ``{cc12m_image_feats}
+    cc12m_img_feat_{i}.store`` and dialog files ``{cc12m_processed_train}
+    iter{n}/cc12m_dialogs_{i}.txt``, concatenated."""
+    datasets = []
+    feat_root = config.cc12m_image_feats
+    dialog_root = config.cc12m_processed_train
+    for n in range(config.iter):
+        iter_path = f"{dialog_root}iter{n + 1}/"
+        for i in range(int(config.chunk)):
+            sub = config.replace(
+                cc12m_image_feats=f"{feat_root}cc12m_img_feat_{i}.store",
+                cc12m_processed_train=f"{iter_path}cc12m_dialogs_{i}.txt",
+            )
+            datasets.append(CC12mDataset(sub, tokenizer, mode="cc12m_train"))
+    return ConcatDataset(datasets)
+
+
+class ConcatDataset:
+    """Datasets end to end, each item keeping its own dataset's seed
+    argument (``gstx/data/cc12m.py:208-219``)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def __getitem__(self, index, seed=None):
+        d = int(np.searchsorted(self._offsets, index, side="right") - 1)
+        return self.datasets[d].__getitem__(index - int(self._offsets[d]),
+                                            seed=seed)

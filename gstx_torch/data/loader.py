@@ -125,3 +125,18 @@ class DataLoader:
         seed = (self.seed * 1_000_003 + epoch_id * 97 + index) % (2**31 - 1)
         return self.dataset.__getitem__(index, seed=seed)
 
+
+
+def batch_iter(loader: DataLoader, num_epochs: int, start_epoch: int = 0,
+               start_idx: int = 0):
+    """(epoch_id, idx, batch) over the epochs (``gstx/data/loader.py:
+    129-141``, reference utils/data_utils.py:20-23).  ``start_idx``: the
+    batch offset within ``start_epoch`` (a mid-epoch resume); later epochs
+    start at 0.  ``idx`` is the batch's index within its epoch, and the
+    skipped batches are never fetched (the per-(epoch, index) item seeds
+    make batch i the same either way)."""
+    for epoch_id in range(start_epoch, num_epochs):
+        first = start_idx if epoch_id == start_epoch else 0
+        for off, batch in enumerate(loader.epoch(epoch_id,
+                                                 start_batch=first)):
+            yield epoch_id, first + off, batch

@@ -2,13 +2,15 @@
 (lines 31-612), itself a NumPy port of the reference dataloaders with
 identical item keys and shapes.
 
-The generative dataset serves ``vd_gen_val`` (caption-only context and a
-[CLS] decoder seed, ``dataloader_visdial_gen.py:460-505``) and the ranking
-modes ``vd_eval_val`` / ``vd_eval_test`` (10 rounds x num_options, or the
-last round x 100 options); the discriminative dataset serves
-``vd_eval_val`` / ``vd_eval_test`` (full-sequence options).  The training
-mode ``vd_train`` of either raises ``NotImplementedError`` naming the
-ROADMAP item that ports it (queue 1 item 5, training).
+The generative dataset serves ``vd_train`` (per-round context and target
+pairs for the teacher or the questioner,
+``dataloader_visdial_gen.py:123-293``), ``vd_gen_val`` (caption-only
+context and a [CLS] decoder seed, ``dataloader_visdial_gen.py:460-505``)
+and the ranking modes ``vd_eval_val`` / ``vd_eval_test`` (10 rounds x
+num_options, or the last round x 100 options); the discriminative dataset
+serves ``vd_eval_val`` / ``vd_eval_test`` (full-sequence options).  The
+discriminative ``vd_train`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it (queue 1 item 5, the discriminative trainer).
 
 Questions and answers are shared index tables in the VisDial JSON, so
 tokenization is memoized per index (the reference re-tokenizes on every
@@ -133,26 +135,28 @@ class VisdialDatasetBase:
 
 
 class VisdialGenDataset(VisdialDatasetBase):
-    """Generative dataset (modes of dataloader_visdial_gen.py:59); this
-    port serves ``vd_eval_val``, ``vd_gen_val`` and ``vd_eval_test``."""
+    """Generative dataset (the modes of dataloader_visdial_gen.py:59)."""
 
     def __init__(self, config: GSTConfig, tokenizer: BertTokenizer,
                  mode: str = "vd_gen_val",
                  reader: Optional[FeatureStoreReader] = None):
         assert mode in ("vd_train", "vd_eval_val", "vd_gen_val",
                         "vd_eval_test")
-        if mode == "vd_train":
-            raise NotImplementedError(NOT_PORTED_TRAIN)
         super().__init__(config, tokenizer, reader)
         self.mode = mode
 
     def __len__(self) -> int:
+        if self.mode == "vd_train":
+            return self._num_points(self.data_train,
+                                    self.config.num_train_samples, self.mode)
         if self.mode in ("vd_eval_val", "vd_gen_val"):
             return self._num_points(self.data_val,
                                     self.config.num_val_samples, self.mode)
         return len(self.data_test["dialogs"])
 
     def _data(self):
+        if self.mode == "vd_train":
+            return self.data_train
         if self.mode in ("vd_eval_val", "vd_gen_val"):
             return self.data_train if self.config.overfit else self.data_val
         return self.data_test
@@ -164,12 +168,74 @@ class VisdialGenDataset(VisdialDatasetBase):
         dialog = data["dialogs"][index]
         q_cache, a_cache = self._caches(data)
         img_id = dialog["image_id"]
+        if self.mode == "vd_train":
+            return self._train_item(dialog, q_cache, a_cache, img_id, rng)
         if self.mode == "vd_eval_val":
             return self._eval_val_item(index, dialog, q_cache, a_cache,
                                        img_id, rng)
         if self.mode == "vd_gen_val":
             return self._gen_val_item(dialog, img_id, rng)
         return self._eval_test_item(dialog, q_cache, a_cache, img_id, rng)
+
+    def _train_item(self, dialog, q_cache, a_cache, img_id, rng):
+        """Per-round (context, target) pairs; the questioner
+        (``-model enc_dec_q``) targets the questions, the teacher the
+        answers (dataloader_visdial_gen.py:123-293).  [rounds, 1, L]
+        sequences; labels are the targets shifted left, and [SEP] becomes
+        [PAD] in the decoder inputs."""
+        is_questioner = self.config.model == "enc_dec_q"
+        caption = self.tokenizer.encode(dialog["caption"])
+        full = [[caption]]
+        contexts, targets = [], []
+        for utt in dialog["dialog"]:
+            q = q_cache[utt["question"]]
+            a = a_cache[utt["answer"]]
+            if is_questioner:
+                ctx = full[-1].copy()
+                tgt = [q[: self.max_utt_len - 2]]
+            else:
+                ctx = full[-1].copy() + [q]
+                tgt = [a[: self.max_utt_len - 2]]
+            full.append(full[-1].copy() + [q, a])
+            contexts.append(ctx)
+            targets.append(tgt)
+        assert len(contexts) == len(targets) == NUM_ROUNDS
+
+        cols = {k: [] for k in (
+            "enc_input_ids", "enc_segments", "enc_sep_indices",
+            "enc_mlm_labels", "enc_next_sentence_labels", "enc_hist_len",
+            "enc_att_mask", "dec_input_ids", "dec_att_mask", "dec_labels")}
+        for j in range(NUM_ROUNDS):
+            tok, seg, sep, mlm, att = encode_input(
+                contexts[j], 1, self.CLS, self.SEP, self.MASK, self.PAD,
+                max_seq_len=self.max_seq_len, mask_prob=0, rng=rng)
+            dtok, _, _, _, datt = encode_input(
+                targets[j], 1, self.CLS, self.SEP, self.MASK, self.PAD,
+                max_seq_len=self.max_utt_len, mask_prob=0, rng=rng)
+            dec_labels = np.zeros_like(dtok)
+            dec_labels[:-1] = dtok[1:]
+            dtok = np.where(dtok == self.SEP, self.PAD, dtok)
+            cols["enc_input_ids"].append(tok)
+            cols["enc_segments"].append(seg)
+            cols["enc_sep_indices"].append(sep)
+            cols["enc_mlm_labels"].append(mlm)
+            cols["enc_next_sentence_labels"].append(
+                np.asarray([-1], dtype=np.int64))
+            cols["enc_hist_len"].append(
+                np.asarray([len(contexts[j]) - 1], dtype=np.int64))
+            cols["enc_att_mask"].append(att)
+            cols["dec_input_ids"].append(dtok)
+            cols["dec_att_mask"].append(datt)
+            cols["dec_labels"].append(dec_labels)
+
+        # hist_len and the NSP labels stay [rounds, 1], as the reference's
+        # per-round scalars
+        flat_keys = ("enc_hist_len", "enc_next_sentence_labels")
+        item = {k: (np.stack(v) if k in flat_keys else np.stack(v)[:, None])
+                for k, v in cols.items()}
+        item.update(self._image_item(img_id, mask_prob=0, rng=rng,
+                                     with_targets=True))
+        return item
 
     def _eval_val_item(self, index, dialog, q_cache, a_cache, img_id, rng):
         """[10 rounds x num_options] ranking inputs + gt indices/relevance
@@ -404,5 +470,6 @@ class VisdialDiscDataset(VisdialDatasetBase):
         return item
 
 
-NOT_PORTED_TRAIN = ("VisDial mode vd_train is ported with training "
-                    "(ROADMAP queue 1 item 5)")
+NOT_PORTED_TRAIN = ("VisDial mode vd_train of the discriminative dataset "
+                    "is ported with the discriminative trainer (ROADMAP "
+                    "queue 1 item 5)")

@@ -24,8 +24,14 @@ declines the others, and the wrappers raise on them.  The switch
 kernels at all; the CLIs set it from ``-use_pallas``.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no fallback from the kernel to the plain version.  Each
-wrapper counts its kernel launches in :data:`launches`.  This serving slice
-has no backward: a CUDA call that would need a gradient raises.
+wrapper counts its kernel launches in :data:`launches`.
+
+Both wrappers differentiate (:class:`FusedDenseLN`, :class:`FusedFFN`, the
+counterparts of the JAX package's ``jax.custom_vjp``,
+``gstx/kernels/ffn.py:306-367``): the forward is the kernel (the plain
+version on the CPU), the backward recomputes the block in f32 with plain
+torch ops and differentiates that.  There is no backward kernel, as the JAX
+package has none.
 """
 
 from __future__ import annotations
@@ -116,9 +122,6 @@ def ffn_plain(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
 
 def _check_cuda(name, dev, bf16=(), f32=()):
     """Validate what the kernel takes; raise on anything else."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in bf16 + f32):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
-                           "call it under torch.no_grad()")
     for t, dtype in [(t, torch.bfloat16) for t in bf16] + \
             [(t, torch.float32) for t in f32]:
         if t.device != dev:
@@ -140,13 +143,9 @@ def _check_width(name, d, k):
                          f"an inner width % 128 == 0; got D={d}, inner={k}")
 
 
-def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
-    """``LayerNorm(residual + x @ weight^T + bias)``.
-
-    x: [..., Din]; weight: [D, Din]; bias, gamma, beta: [D];
-    residual: [..., D].  On CUDA: x, weight, residual bf16; bias, gamma,
-    beta f32; widths that :func:`widths_taken`.  Returns residual's dtype
-    and shape."""
+def _dense_ln_forward(x, weight, bias, residual, gamma, beta, eps):
+    """The forward of :func:`fused_dense_ln`: the plain version for CPU
+    tensors, the kernel for CUDA ones."""
     if x.device.type == "cpu":
         return dense_ln_plain(x, weight, bias, residual, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -174,12 +173,9 @@ def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
     return out
 
 
-def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
-    """``LayerNorm(x + gelu(x @ w1^T + b1) @ w2^T + b2)``.
-
-    x: [..., D]; w1: [F, D]; b1: [F]; w2: [D, F]; b2, gamma, beta: [D].
-    On CUDA: x, w1, w2 bf16; b1, b2, gamma, beta f32; widths that
-    :func:`widths_taken`.  Returns x's dtype and shape."""
+def _ffn_forward(x, w1, b1, w2, b2, gamma, beta, eps):
+    """The forward of :func:`fused_ffn`: the plain version for CPU tensors,
+    the kernel for CUDA ones."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -203,3 +199,95 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
             m, d, f, block_rows(m, d), float(eps), stream), "fused_ffn")
         launches["fused_ffn"] += 1
     return out
+
+
+# ---------------------------------------------------------------------- #
+# reverse mode: the kernels' forward, an f32 recompute backward
+# ---------------------------------------------------------------------- #
+
+
+def dense_ln_recompute(x, weight, bias, residual, gamma, beta, eps):
+    """The backward's f32 math of :class:`FusedDenseLN`
+    (``_dense_ln_ref_math``, ``gstx/kernels/ffn.py:332``)."""
+    y = x.float() @ weight.float().t() + bias.float() + residual.float()
+    return _layer_norm(y, gamma.float(), beta.float(),
+                       eps).to(residual.dtype)
+
+
+def ffn_recompute(x, w1, b1, w2, b2, gamma, beta, eps):
+    """The backward's f32 math of :class:`FusedFFN` (``_ffn_ref_math``,
+    ``gstx/kernels/ffn.py:313-318``).  Unlike the forward (the kernel and
+    :func:`ffn_plain`), it does NOT round the hidden to x's dtype: the JAX
+    package differentiates this unrounded math, and so does the port."""
+    xf = x.float()
+    h = _gelu_erf(xf @ w1.float().t() + b1.float())
+    y = h @ w2.float().t() + b2.float() + xf
+    return _layer_norm(y, gamma.float(), beta.float(), eps).to(x.dtype)
+
+
+def _recompute_grads(ctx, math, g):
+    """The vector-Jacobian product of ``math`` at the saved inputs: the
+    inputs that need a gradient get it in their own dtype (a bf16 weight's
+    gradient is bf16; autograd carries it back through the cast to the f32
+    parameter), the others None."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = math(*leaves, ctx.eps)
+        wanted = [t for t, n in zip(leaves, need) if n]
+        got = iter(torch.autograd.grad(out, wanted, g)) if wanted else None
+    return tuple(next(got) if n else None for n in need) + (None,)
+
+
+class FusedDenseLN(torch.autograd.Function):
+    """:func:`fused_dense_ln` under autograd: the kernel forward (the plain
+    version on the CPU), the backward :func:`dense_ln_recompute`'s vjp, as
+    ``_dense_ln_vjp`` (``gstx/kernels/ffn.py:337-365``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, gamma, beta, eps):
+        ctx.save_for_backward(x, weight, bias, residual, gamma, beta)
+        ctx.eps = eps
+        return _dense_ln_forward(x, weight, bias, residual, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(ctx, dense_ln_recompute, g)
+
+
+class FusedFFN(torch.autograd.Function):
+    """:func:`fused_ffn` under autograd: the kernel forward (the plain
+    version on the CPU), the backward :func:`ffn_recompute`'s vjp, as
+    ``_ffn_vjp`` (``gstx/kernels/ffn.py:306-330``)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, gamma, beta, eps):
+        ctx.save_for_backward(x, w1, b1, w2, b2, gamma, beta)
+        ctx.eps = eps
+        return _ffn_forward(x, w1, b1, w2, b2, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(ctx, ffn_recompute, g)
+
+
+def fused_dense_ln(x, weight, bias, residual, gamma, beta, eps=1e-12):
+    """``LayerNorm(residual + x @ weight^T + bias)``, differentiable
+    (:class:`FusedDenseLN`).
+
+    x: [..., Din]; weight: [D, Din]; bias, gamma, beta: [D];
+    residual: [..., D].  On CUDA: x, weight, residual bf16; bias, gamma,
+    beta f32; widths that :func:`widths_taken`.  Returns residual's dtype
+    and shape."""
+    return FusedDenseLN.apply(x, weight, bias, residual, gamma, beta, eps)
+
+
+def fused_ffn(x, w1, b1, w2, b2, gamma, beta, eps=1e-12):
+    """``LayerNorm(x + gelu(x @ w1^T + b1) @ w2^T + b2)``, differentiable
+    (:class:`FusedFFN`).
+
+    x: [..., D]; w1: [F, D]; b1: [F]; w2: [D, F]; b2, gamma, beta: [D].
+    On CUDA: x, w1, w2 bf16; b1, b2, gamma, beta f32; widths that
+    :func:`widths_taken`.  Returns x's dtype and shape."""
+    return FusedFFN.apply(x, w1, b1, w2, b2, gamma, beta, eps)

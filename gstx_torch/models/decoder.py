@@ -17,6 +17,13 @@ The layers are reference HF BertLayer with crossattention; their parameters
 sit under ``decoder.decoder.bert.encoder.layer`` in the full model.  The
 decoder's FFN and projections are plain ops, as in the JAX package (no
 fused kernel runs here).
+
+Under training (``gstx/models/decoder.py:112-155,191-195``) the self- and
+cross-attention probabilities are dropped at ``attention_probs_dropout_prob``
+and each projection and FFN output at ``hidden_dropout_prob``; each layer
+runs under the remat policy, keeping only its inputs under ``small`` (the
+JAX decoder tags nothing).  The int8 memory has no attention-dropout
+branch, so a training forward over it raises, as ``decoder.py:137-145``.
 """
 
 from __future__ import annotations
@@ -34,10 +41,13 @@ from gstx_torch.models.layers import (
     DenseLN,
     Intermediate,
     Projections,
+    Training,
     attend,
     causal_additive_mask,
+    layer_call,
     linear,
     merge_heads,
+    site_of,
     split_heads,
 )
 
@@ -89,8 +99,11 @@ class _Attention(nn.Module):
         self.output = DenseLN(d, d, eps)
 
 
-def _project_ln(ctx, out: DenseLN, residual):
-    return out.LayerNorm(linear(ctx, out.dense) + residual)
+def _project_ln(ctx, out: DenseLN, residual, train=None, rate=0.0, site=0):
+    h = linear(ctx, out.dense)
+    if train is not None:
+        h = train.dropout(h, rate, site)
+    return out.LayerNorm(h + residual)
 
 
 class DecoderLayer(nn.Module):
@@ -104,6 +117,8 @@ class DecoderLayer(nn.Module):
         self.crossattention = _Attention(d, eps)
         self.intermediate = Intermediate(d, cfg.intermediate_size)
         self.output = DenseLN(cfg.intermediate_size, d, eps)
+        self.hidden_dropout = cfg.hidden_dropout_prob
+        self.attn_dropout = cfg.attention_probs_dropout_prob
 
     def memory_kv(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K/V of a fixed encoder memory."""
@@ -112,21 +127,31 @@ class DecoderLayer(nn.Module):
         return (split_heads(linear(memory, s.key), h),
                 split_heads(linear(memory, s.value), h))
 
-    def _self_block(self, x, q, k, v, mask):
-        ctx = attend(q, k, v, mask)
-        return _project_ln(merge_heads(ctx), self.attention.output, x)
+    def _self_block(self, x, q, k, v, mask, train=None):
+        ctx = attend(q, k, v, mask, train, self.attn_dropout,
+                     site_of(self, 0))
+        return _project_ln(merge_heads(ctx), self.attention.output, x,
+                           train, self.hidden_dropout, site_of(self, 1))
 
-    def _cross_block(self, x, mem, mem_mask):
+    def _cross_block(self, x, mem, mem_mask, train=None):
         """Cross-attention over the static memory: ``mem`` is a layer's
         (k, v) or its int8 4-tuple from :func:`quantize_memory_kv`."""
         q = split_heads(linear(x, self.crossattention.self.query),
                         self.num_heads)
         if len(mem) == 4:
+            if train is not None:
+                # the int8 path has no attention-dropout branch
+                raise ValueError(
+                    "quantized cross-attention memory supports only "
+                    "deterministic=True (no attention-dropout path); "
+                    "pass unquantized (k, v) memory for training")
             ctx = self._quant_cross_attend(q, mem, mem_mask)
         else:
             mem_k, mem_v = mem
-            ctx = attend(q, mem_k, mem_v, mem_mask)
-        return _project_ln(merge_heads(ctx), self.crossattention.output, x)
+            ctx = attend(q, mem_k, mem_v, mem_mask, train, self.attn_dropout,
+                         site_of(self, 2))
+        return _project_ln(merge_heads(ctx), self.crossattention.output, x,
+                           train, self.hidden_dropout, site_of(self, 3))
 
     @staticmethod
     def _quant_cross_attend(q, mem, mem_mask):
@@ -148,21 +173,27 @@ class DecoderLayer(nn.Module):
             ctx = torch.matmul(probs.float(), vq.float())
         return (ctx * vs.float()).to(dt)
 
-    def _ffn_block(self, x):
+    def _ffn_block(self, x, train=None):
         h = F.gelu(linear(x, self.intermediate.dense))  # exact erf
-        return self.output.LayerNorm(linear(h, self.output.dense) + x)
+        h = linear(h, self.output.dense)
+        if train is not None:
+            h = train.dropout(h, self.hidden_dropout, site_of(self, 4))
+        return self.output.LayerNorm(h + x)
 
-    def forward(self, x, self_mask, memory, mem_mask):
+    def forward(self, x, self_mask, memory, mem_mask,
+                train: Optional[Training] = None):
         return self.forward_with_memory_kv(x, self_mask,
-                                           self.memory_kv(memory), mem_mask)
+                                           self.memory_kv(memory), mem_mask,
+                                           train)
 
-    def forward_with_memory_kv(self, x, self_mask, mem, mem_mask):
+    def forward_with_memory_kv(self, x, self_mask, mem, mem_mask,
+                               train: Optional[Training] = None):
         """Full-sequence forward with precomputed cross-attention K/V."""
         q, k, v = (split_heads(t, self.num_heads)
                    for t in self.attention.self(x))
-        x = self._self_block(x, q, k, v, self_mask)
-        x = self._cross_block(x, mem, mem_mask)
-        return self._ffn_block(x)
+        x = self._self_block(x, q, k, v, self_mask, train)
+        x = self._cross_block(x, mem, mem_mask, train)
+        return self._ffn_block(x, train)
 
     def step(self, x, pos: int, cache: Cache, mem, mem_mask):
         """One KV-cached decode step for x [B, 1, D] at position ``pos``.
@@ -223,18 +254,22 @@ class GSTDecoderModel(nn.Module):
         through ``preferred_element_type`` (``decoder.py:285-295``); a bf16
         matmul would round them to bf16 and create ties that change top-k
         sampling, so the operands are upcast.  (bf16 operands are exact in
-        f32, so the products equal the JAX bf16 path's.)"""
-        w = self.lm_head.decoder.weight
+        f32, so the products equal the JAX bf16 path's.)  The weight is
+        rounded to the activation dtype first, as JAX's bf16 path casts
+        its f32 parameter."""
+        w = self.lm_head.decoder.weight.to(hidden.dtype)
         return F.linear(hidden.float(), w.float()) + self.lm_head.bias.float()
 
     def forward(self, x, attention_mask: Optional[torch.Tensor], memory,
-                memory_mask: Optional[torch.Tensor]):
+                memory_mask: Optional[torch.Tensor],
+                train: Optional[Training] = None):
         if attention_mask is None:
             attention_mask = torch.ones(x.shape[:2], dtype=torch.long,
                                         device=x.device)
         self_mask = causal_additive_mask(attention_mask, x.dtype)
         for layer in self.layers:
-            x = layer(x, self_mask, memory, memory_mask)
+            x = layer_call(train, layer, x, self_mask, memory, memory_mask,
+                           train, tagged=False)
         return x
 
     def forward_cached(self, x, attention_mask: Optional[torch.Tensor],

@@ -8,11 +8,20 @@ decoder input embeddings (one module) == MLM-head projection; the decoder LM
 head has its own projection weight.  With ``use_decoder=False`` the model is
 the discriminative encoder alone (``encoder.bert_pretrained.*``, the
 reference's enc-only checkpoints), as ``gstx/models/encdec.py:36,75``.
+
+Compute dtype: ``GSTVisualDialog(dtype=torch.bfloat16)`` computes in bf16
+over the parameters' own dtype (f32 when built), as the JAX package trains
+``GSTVisualDialog(dtype=bf16)`` with f32 parameters; ``dtype=None`` (the
+default) computes in the dtype of the embedding tables, so a model cast
+with :func:`precast_` computes in bf16.  Both give the same forward, bit
+for bit.  Training: :meth:`GSTVisualDialog.score` with ``train``
+(:class:`gstx_torch.models.layers.Training`) and
+:func:`teacher_forced_loss`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +32,11 @@ from gstx_torch.core.device import resolve_device
 from gstx_torch.models.decoder import GSTDecoderModel
 from gstx_torch.models.encoder import GSTEncoderModel
 from gstx_torch.models.heads import PreTrainingHeads
-from gstx_torch.models.layers import (LayerNorm, additive_mask,
-                                      init_weights_, linear)
+from gstx_torch.models.layers import (LayerNorm, Training, additive_mask,
+                                      init_weights_, linear,
+                                      number_dropout_sites, site_of)
+
+FUSION_DROPOUT = 0.1  # VLFusion's nn.Dropout(0.1) (gstx/models/encdec.py:85)
 
 
 class _BertPretrained(nn.Module):
@@ -40,10 +52,12 @@ class GSTVisualDialog(nn.Module):
     (see :func:`gstx_torch.models.layers.init_weights_`); load trained
     weights with ``load_state_dict`` afterwards.  ``use_decoder=False``
     builds the encoder and its heads only (no ``vlfusion.*`` or
-    ``decoder.*``)."""
+    ``decoder.*``).  ``dtype``: the compute dtype (see the module's
+    docstring)."""
 
     def __init__(self, enc_config: EncoderConfig, dec_config: DecoderConfig,
-                 device="cuda", seed: int = 0, use_decoder: bool = True):
+                 device="cuda", seed: int = 0, use_decoder: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.enc_config, self.dec_config = enc_config, dec_config
         self.use_decoder = use_decoder
@@ -67,6 +81,9 @@ class GSTVisualDialog(nn.Module):
             with torch.no_grad():
                 self.dec.lm_head.decoder.weight.normal_(
                     0.0, dec_config.initializer_range, generator=gen)
+        self.bert.embeddings.compute_dtype = dtype
+        self.bert.v_embeddings.compute_dtype = dtype
+        number_dropout_sites(self)
 
     @property
     def bert(self) -> GSTEncoderModel:
@@ -78,7 +95,8 @@ class GSTVisualDialog(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """Activation dtype (that of the embedding tables)."""
+        """Activation dtype: the compute dtype, else that of the embedding
+        tables."""
         return self.bert.embeddings.dtype
 
     @property
@@ -91,12 +109,12 @@ class GSTVisualDialog(nn.Module):
 
     def encode(self, input_ids, image_feat, image_loc, token_type_ids=None,
                attention_mask=None, image_attention_mask=None,
-               pooled: bool = True):
+               pooled: bool = True, train: Optional[Training] = None):
         return self.bert(input_ids, image_feat, image_loc,
                          token_type_ids=token_type_ids,
                          attention_mask=attention_mask,
                          image_attention_mask=image_attention_mask,
-                         pooled=pooled)
+                         pooled=pooled, train=train)
 
     def pretrain_scores(self, input_ids, image_feat, image_loc,
                         token_type_ids=None, attention_mask=None,
@@ -123,27 +141,32 @@ class GSTVisualDialog(nn.Module):
     # fusion + decoder paths
     # ------------------------------------------------------------------ #
 
-    def fuse(self, hidden_t, hidden_v, attention_mask, image_attention_mask):
+    def fuse(self, hidden_t, hidden_v, attention_mask, image_attention_mask,
+             train: Optional[Training] = None):
         """VLFusion: project both streams to the text width and concatenate
-        [visual; text] into the memory."""
+        [visual; text] into the memory (dropped at 0.1 under training)."""
         memory = torch.cat([linear(hidden_v, self.vlfusion.fc_v),
                             linear(hidden_t, self.vlfusion.fc_l)], dim=1)
+        if train is not None:
+            memory = train.dropout(memory, FUSION_DROPOUT,
+                                   site_of(self.vlfusion))
         memory_mask = torch.cat([image_attention_mask.float(),
                                  attention_mask.float()], dim=1)
         return memory, memory_mask
 
-    def _embed_dec(self, dec_input_ids, positions=None):
+    def _embed_dec(self, dec_input_ids, positions=None,
+                   train: Optional[Training] = None):
         # the decoder reuses the dialog embeddings with segment 0
         return self.bert.embeddings(
             dec_input_ids, token_type_ids=torch.zeros_like(dec_input_ids),
-            position_ids=positions)
+            position_ids=positions, train=train, call=1)
 
     def decode_logits(self, dec_input_ids, dec_attention_mask, memory,
-                      memory_mask):
+                      memory_mask, train: Optional[Training] = None):
         """Teacher-forced decoder pass -> [B, L, vocab] float32 logits."""
-        x = self._embed_dec(dec_input_ids)
+        x = self._embed_dec(dec_input_ids, train=train)
         mem_add = additive_mask(memory_mask, self.dtype)
-        h = self.dec(x, dec_attention_mask, memory, mem_add)
+        h = self.dec(x, dec_attention_mask, memory, mem_add, train)
         return self.dec.lm_logits(h)
 
     def decode_logits_cached(self, dec_input_ids, dec_attention_mask,
@@ -156,15 +179,18 @@ class GSTVisualDialog(nn.Module):
 
     def score(self, input_ids, image_feat, image_loc, token_type_ids,
               attention_mask, image_attention_mask, dec_input_ids,
-              dec_attention_mask):
-        """encode -> fuse -> teacher-forced decode."""
+              dec_attention_mask, train: Optional[Training] = None):
+        """encode -> fuse -> teacher-forced decode: the train/eval forward
+        of the reference EncoderDecoderModel.  ``train``: a training
+        forward (dropout and recomputation), None for the deterministic
+        one."""
         hidden_t, hidden_v, _, _ = self.encode(
             input_ids, image_feat, image_loc, token_type_ids,
-            attention_mask, image_attention_mask, pooled=False)
+            attention_mask, image_attention_mask, pooled=False, train=train)
         memory, memory_mask = self.fuse(hidden_t, hidden_v, attention_mask,
-                                        image_attention_mask)
+                                        image_attention_mask, train)
         return self.decode_logits(dec_input_ids, dec_attention_mask, memory,
-                                  memory_mask)
+                                  memory_mask, train)
 
     # ------------------------------------------------------------------ #
     # KV-cached decode
@@ -229,6 +255,14 @@ def teacher_forced_nll(logits, labels, pad_id: int = 0) -> torch.Tensor:
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     return torch.where(labels == pad_id, 0.0, nll)
+
+
+def teacher_forced_loss(logits, labels, pad_id: int = 0) -> torch.Tensor:
+    """Mean CE over non-pad label positions (torch CrossEntropyLoss with
+    ignore_index=pad, reduction='mean'; ``gstx/models/encdec.py:245-251``):
+    a scalar, 0 when every label is pad."""
+    nll = teacher_forced_nll(logits, labels, pad_id)
+    return nll.sum() / (labels != pad_id).sum().clamp(min=1)
 
 
 def candidate_log_likelihood(logits, dec_input_ids, pad_id: int = 0

@@ -13,7 +13,7 @@ from torch import nn
 
 from gstx_torch.core.config import EncoderConfig
 from gstx_torch.models.embeddings import DialogEmbeddings, ImageEmbeddings
-from gstx_torch.models.layers import additive_mask
+from gstx_torch.models.layers import Training, additive_mask
 from gstx_torch.models.two_stream import Pooler, TwoStreamEncoder
 
 
@@ -31,10 +31,11 @@ class GSTEncoderModel(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 image_attention_mask: Optional[torch.Tensor] = None,
-                pooled: bool = True):
+                pooled: bool = True, train: Optional[Training] = None):
         """Returns (hidden_t [B,L,768], hidden_v [B,R,1024], pooled_t,
         pooled_v); the pooled outputs are None when ``pooled`` is False (the
-        decode path never reads them)."""
+        decode path and the training score never read them).  ``train``:
+        a training forward (:class:`gstx_torch.models.layers.Training`)."""
         dtype = self.embeddings.dtype
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -44,9 +45,11 @@ class GSTEncoderModel(nn.Module):
                 device=input_ids.device)
         t_mask = additive_mask(attention_mask, dtype)
         v_mask = additive_mask(image_attention_mask, dtype)
-        t_emb = self.embeddings(input_ids, token_type_ids=token_type_ids)
-        v_emb = self.v_embeddings(image_feat, image_loc)
-        hidden_t, hidden_v = self.encoder(t_emb, v_emb, t_mask, v_mask)
+        t_emb = self.embeddings(input_ids, token_type_ids=token_type_ids,
+                                train=train)
+        v_emb = self.v_embeddings(image_feat, image_loc, train)
+        hidden_t, hidden_v = self.encoder(t_emb, v_emb, t_mask, v_mask,
+                                          train)
         if not pooled:
             return hidden_t, hidden_v, None, None
         return (hidden_t, hidden_v, self.t_pooler(hidden_t),

@@ -20,18 +20,27 @@ anything else runs the unfused ops.
 ``gstx_torch/kernels/attention.py`` when its switch is on (off by default,
 as in the reference).
 
-This serving slice has no dropout: every block computes the deterministic
-forward.
+Training (``gstx/models/layers.py:46-91,193-351``): a forward given a
+:class:`Training` applies dropout at the JAX package's sites and rates, and
+recomputes under its remat policy (:func:`layer_call`, :func:`region`).
+The fused kernels' gate declines a site whose dropout is active, as
+``maybe_fused_*`` do; with every rate 0 the kernels run under autograd
+(``kffn.FusedFFN`` / ``kffn.FusedDenseLN``).  Without a :class:`Training`
+(``train=None``) every block computes the deterministic forward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import ffn as kffn
@@ -67,6 +76,144 @@ class LayerNorm(nn.Module):
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
+# ---------------------------------------------------------------------- #
+# training: dropout and recomputation
+# ---------------------------------------------------------------------- #
+
+REMAT_POLICIES = ("full", "dots", "small")
+_MASK64 = (1 << 64) - 1
+
+
+def _mix(seed: int, site: int) -> int:
+    """A 63-bit generator seed from (seed, site): splitmix64's finalizer
+    over their combination, so neighbouring sites draw unrelated masks."""
+    z = (seed * 0x9E3779B97F4A7C15 + (site + 1) * 0xBF58476D1CE4E5B9) \
+        & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def number_dropout_sites(root: nn.Module):
+    """Give every module under ``root`` its ``dropout_site``: its index in
+    ``root.modules()``.  A dropout mask's seed derives from the forward's
+    seed and (module, call site), never from how many masks were drawn
+    before it, so a recomputed region draws the masks of its first run."""
+    for i, m in enumerate(root.modules()):
+        m.dropout_site = i
+
+
+def site_of(module: nn.Module, k: int = 0) -> int:
+    """Call site ``k`` (< 16) of ``module``'s forward."""
+    return module.dropout_site * 16 + k
+
+
+@dataclass(frozen=True)
+class Training:
+    """What a training forward threads through the blocks (the JAX
+    package's ``deterministic=False`` with its dropout rng and
+    ``remat_policy``).
+
+    ``seed`` seeds every dropout mask: a site's mask comes from a generator
+    on the tensor's device seeded with ``_mix(seed, site)``, re-seeded at
+    each draw.  ``torch.utils.checkpoint`` restores only the global RNG
+    states, so a mask drawn from a shared stream would differ in the
+    recompute; a mask that is a function of (seed, site) does not.
+
+    ``remat``: None (keep every activation), or the policy of
+    ``gstx/models/layers.py::checkpoint_policy``:
+
+      * ``full``: each layer keeps its inputs and recomputes everything;
+      * ``dots``: each layer keeps the outputs of its weight products
+        (``aten.mm`` / ``aten.addmm``, the dots without batch dimensions)
+        and recomputes the rest, the batched attention products included;
+      * ``small``: each encoder layer keeps the QKV projections, the
+        attention contexts and the block outputs (the JAX package's
+        ``gstx_proj`` / ``gstx_ctx`` / ``gstx_block`` names) and
+        recomputes the scores, the probabilities, the projections behind a
+        LayerNorm and the FFN hidden.  A fused site keeps only its inputs
+        by design (its backward recomputes from them), so it needs no
+        region and its kernel does not run again.  The decoder's layers
+        carry no tag in the JAX package, so under ``small`` they keep only
+        their inputs, as under ``full``.
+    """
+
+    seed: int
+    remat: Optional[str] = None
+    _gens: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.remat not in (None,) + REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r} (use "
+                             "'full', 'dots' or 'small')")
+
+    def keep_mask(self, shape, device, keep: float, site: int):
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        gen.manual_seed(_mix(self.seed, site))
+        return torch.rand(shape, generator=gen, device=device) < keep
+
+    def dropout(self, x, rate: float, site: int):
+        """Flax ``nn.Dropout``: kept values scaled by 1/keep in x's dtype,
+        dropped ones 0."""
+        if rate <= 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = self.keep_mask(x.shape, x.device, keep, site)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def dropping(train: Optional[Training], rate: float) -> bool:
+    """Whether a site's dropout is active (``not deterministic and
+    dropout_rate > 0``, the kernels' gate condition)."""
+    return train is not None and rate > 0.0
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if func in _WEIGHT_PRODUCTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_WEIGHT_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _checkpoint(fn, *args, context_fn=None):
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    # the masks are functions of (seed, site): no global RNG to restore
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def _recomputing(train: Optional[Training]) -> bool:
+    return train is not None and train.remat is not None \
+        and torch.is_grad_enabled()
+
+
+def layer_call(train: Optional[Training], fn, *args, tagged: bool = True):
+    """One layer's forward ``fn(*args)`` under ``train``'s remat policy
+    (the JAX package's per-layer ``nn.remat``): ``full`` and ``dots``
+    checkpoint the whole layer; ``small`` leaves a tagged (encoder) layer
+    to its :func:`region`s and checkpoints an untagged (decoder) layer
+    whole."""
+    if not _recomputing(train) or (train.remat == "small" and tagged):
+        return fn(*args)
+    if train.remat == "dots":
+        return _checkpoint(fn, *args, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return _checkpoint(fn, *args)
+
+
+def region(train: Optional[Training], fn, *args):
+    """A piece of an encoder layer between tagged values: under ``small``
+    it keeps only its inputs and recomputes the rest; otherwise it runs as
+    it is."""
+    if _recomputing(train) and train.remat == "small":
+        return _checkpoint(fn, *args)
+    return fn(*args)
+
+
 def additive_mask(binary_mask, dtype=torch.float32):
     """[B, L] {0,1} -> [B, 1, 1, L] additive mask, -10000 at masked slots."""
     m = binary_mask[:, None, None, :].float()
@@ -94,66 +241,108 @@ def merge_heads(x):
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
-def attend(q, k, v, mask: Optional[torch.Tensor]):
+def attend(q, k, v, mask: Optional[torch.Tensor],
+           train: Optional[Training] = None, rate: float = 0.0,
+           site: int = 0):
     """Scaled dot-product attention over [B, H, L, Dh] tensors.
 
     The kernel gate first (``layers.py:210-216``): with the attention switch
-    on (:func:`gstx_torch.kernels.attention.enable`), a query of 8 or more
-    rows whose mask carries its batch goes through ``fused_attention``
-    (f32 probabilities), returned in the activation dtype.  Otherwise the
-    unfused ops below, which ``attention_batch_plain`` reproduces.
+    on (:func:`gstx_torch.kernels.attention.enable`) and no active dropout,
+    a query of 8 or more rows whose mask carries its batch goes through
+    ``fused_attention`` (f32 probabilities), returned in the activation
+    dtype.  Otherwise the unfused ops below, which ``attention_batch_plain``
+    reproduces.
 
     The scores must be f32, as JAX's ``preferred_element_type=f32`` keeps
     them: a bf16 ``matmul`` would round them to bf16, so the operands are
-    upcast.  The softmax runs in f32; the probabilities are cast to the
-    activation dtype for the PV product, whose result has that dtype.
-    ``mask`` is additive, broadcastable to [B, H, Lq, Lk]."""
-    fused = kattn.maybe_fused_attention(q, k, v, mask)
-    if fused is not None:
-        return fused.to(q.dtype)
+    upcast.  The softmax runs in f32; under ``train`` with ``rate`` > 0 the
+    f32 probabilities are dropped at ``site`` and scaled by 1/keep
+    (``layers.py:255-257``); they are cast to the activation dtype for the
+    PV product, whose result has that dtype.  ``mask`` is additive,
+    broadcastable to [B, H, Lq, Lk]."""
+    if not dropping(train, rate):
+        fused = kattn.maybe_fused_attention(q, k, v, mask)
+        if fused is not None:
+            return fused.to(q.dtype)
     scale = kattn.softmax_scale(q.shape[-1])
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask.float()
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropping(train, rate):
+        keep = 1.0 - rate
+        probs = probs * train.keep_mask(probs.shape, probs.device, keep,
+                                        site) / keep
+    # rebinding frees the f32 probabilities before the product
+    probs = probs.to(q.dtype)
     return torch.matmul(probs, v)
 
 
-def _fusable(x, d, inner) -> bool:
+def attention_region(train: Optional[Training], q, k, v, mask,
+                     rate: float = 0.0, site: int = 0):
+    """:func:`attend` as a :func:`region`: under ``small`` the context is
+    kept and the scores and probabilities are recomputed."""
+    return region(train, lambda q_, k_, v_, m_: attend(
+        q_, k_, v_, m_, train, rate, site), q, k, v, mask)
+
+
+def _fusable(x, d, inner, train: Optional[Training] = None,
+             rate: float = 0.0) -> bool:
     """The layer-level gate of ``maybe_fused_*``: the kernels' switch
-    (``kffn.enable``, set from ``-use_pallas``) first, then bf16
-    activations at widths the kernels take (``widths_taken``, the predicate
-    their wrappers raise by); elsewhere the caller runs the unfused ops, as
-    the reference does where its gate returns None.  This slice is
-    deterministic, so the dropout condition always holds."""
-    return kffn.is_enabled() and x.dtype == torch.bfloat16 \
-        and kffn.widths_taken(d, inner)
+    (``kffn.enable``, set from ``-use_pallas``) first, then no active
+    dropout at the site (``not deterministic and dropout_rate > 0``
+    declines, ``gstx/kernels/ffn.py:401,419``), then bf16 activations at
+    widths the kernels take (``widths_taken``, the predicate their
+    wrappers raise by); elsewhere the caller runs the unfused ops, as the
+    reference does where its gate returns None."""
+    return kffn.is_enabled() and not dropping(train, rate) \
+        and x.dtype == torch.bfloat16 and kffn.widths_taken(d, inner)
 
 
-def dense_ln(x, dense: nn.Linear, ln: LayerNorm, residual):
-    """``ln(dense(x) + residual)``, through the fused kernel when eligible."""
-    if _fusable(x, *dense.weight.shape):
+def dense_ln(x, dense: nn.Linear, ln: LayerNorm, residual,
+             train: Optional[Training] = None, rate: float = 0.0,
+             site: int = 0):
+    """``ln(dropout(dense(x)) + residual)``, through the fused kernel when
+    eligible.  The kernel's bias is rounded to the activation dtype, as the
+    unfused projection's is, so an f32 parameter under a bf16 compute dtype
+    gives what the same parameter cast once to bf16 gives."""
+    if _fusable(x, *dense.weight.shape, train, rate):
         dt = x.dtype
         return kffn.fused_dense_ln(
-            x.contiguous(), dense.weight.to(dt), dense.bias.float(),
+            x.contiguous(), dense.weight.to(dt), dense.bias.to(dt).float(),
             residual.to(dt).contiguous(), ln.weight.float(), ln.bias.float(),
             eps=ln.eps)
-    return ln(linear(x, dense) + residual)
+
+    def block(x_, r_):
+        h = linear(x_, dense)
+        if train is not None:
+            h = train.dropout(h, rate, site)
+        return ln(h + r_)
+    return region(train, block, x, residual)
 
 
 def feed_forward(x, intermediate: nn.Linear, output: nn.Linear,
-                 ln: LayerNorm, activation: str = "gelu"):
-    """BertIntermediate + BertOutput: ``ln(output(act(intermediate(x))) +
-    x)``, through the fused kernel when eligible."""
-    if activation == "gelu" and _fusable(x, *output.weight.shape):
+                 ln: LayerNorm, activation: str = "gelu",
+                 train: Optional[Training] = None, rate: float = 0.0,
+                 site: int = 0):
+    """BertIntermediate + BertOutput: ``ln(dropout(output(act(
+    intermediate(x)))) + x)``, through the fused kernel when eligible (its
+    biases rounded as :func:`dense_ln`'s)."""
+    if activation == "gelu" and _fusable(x, *output.weight.shape, train,
+                                         rate):
         dt = x.dtype
         return kffn.fused_ffn(
             x.contiguous(), intermediate.weight.to(dt),
-            intermediate.bias.float(), output.weight.to(dt),
-            output.bias.float(), ln.weight.float(), ln.bias.float(),
+            intermediate.bias.to(dt).float(), output.weight.to(dt),
+            output.bias.to(dt).float(), ln.weight.float(), ln.bias.float(),
             eps=ln.eps)
-    h = ACT2FN[activation](linear(x, intermediate))
-    return ln(linear(h, output) + x)
+
+    def block(x_):
+        h = linear(ACT2FN[activation](linear(x_, intermediate)), output)
+        if train is not None:
+            h = train.dropout(h, rate, site)
+        return ln(h + x_)
+    return region(train, block, x)
 
 
 class Projections(nn.Module):
@@ -179,8 +368,10 @@ class DenseLN(nn.Module):
         self.dense = nn.Linear(d_in, d_out)
         self.LayerNorm = LayerNorm(d_out, eps)
 
-    def forward(self, x, residual):
-        return dense_ln(x, self.dense, self.LayerNorm, residual)
+    def forward(self, x, residual, train: Optional[Training] = None,
+                rate: float = 0.0):
+        return dense_ln(x, self.dense, self.LayerNorm, residual, train, rate,
+                        site_of(self))
 
 
 class Intermediate(nn.Module):
@@ -192,38 +383,48 @@ class Intermediate(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Reference BertAttention: ``LayerNorm(dense(attn(x)) + x)``."""
+    """Reference BertAttention: ``LayerNorm(dropout(dense(attn(x))) + x)``,
+    the attention probabilities dropped at ``attn_dropout`` and the
+    projection at ``hidden_dropout`` under training."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
-                 eps: float = 1e-12):
+                 eps: float = 1e-12, attn_dropout: float = 0.0,
+                 hidden_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_dropout, self.hidden_dropout = attn_dropout, hidden_dropout
         inner = num_heads * head_dim
         self.self = Projections(d_model, inner)
         self.output = DenseLN(inner, d_model, eps)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train: Optional[Training] = None):
         q, k, v = (split_heads(t, self.num_heads) for t in self.self(x))
-        ctx = merge_heads(attend(q, k, v, mask))
-        return self.output(ctx, x)
+        ctx = attention_region(train, q, k, v, mask, self.attn_dropout,
+                               site_of(self))
+        return self.output(merge_heads(ctx), x, train, self.hidden_dropout)
 
 
 class TransformerLayer(nn.Module):
-    """One post-LN BERT layer (text or visual stream), reference BertLayer."""
+    """One post-LN BERT layer (text or visual stream), reference BertLayer;
+    ``attn_dropout`` / ``hidden_dropout`` are its training rates."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  intermediate_size: int, activation: str = "gelu",
-                 eps: float = 1e-12):
+                 eps: float = 1e-12, attn_dropout: float = 0.0,
+                 hidden_dropout: float = 0.0):
         super().__init__()
         self.activation = activation
-        self.attention = SelfAttention(d_model, num_heads, head_dim, eps)
+        self.hidden_dropout = hidden_dropout
+        self.attention = SelfAttention(d_model, num_heads, head_dim, eps,
+                                       attn_dropout, hidden_dropout)
         self.intermediate = Intermediate(d_model, intermediate_size)
         self.output = DenseLN(intermediate_size, d_model, eps)
 
-    def forward(self, x, mask):
-        x = self.attention(x, mask)
+    def forward(self, x, mask, train: Optional[Training] = None):
+        x = self.attention(x, mask, train)
         return feed_forward(x, self.intermediate.dense, self.output.dense,
-                            self.output.LayerNorm, self.activation)
+                            self.output.LayerNorm, self.activation, train,
+                            self.hidden_dropout, site_of(self.output))
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator,

@@ -1,0 +1,269 @@
+"""Generative training (teacher / questioner / student): the port of
+``gstx/train/train_gen.py``.
+
+Per-dialog batches carry [B, 10 rounds, 1 sample] sequences; each step
+samples exactly ``batch_size`` rows with non-empty labels (with
+replacement, the reference's static-shape trick, ``train_gen.py:63-68``),
+runs the encoder-decoder teacher-forced forward with dropout under the
+remat policy, and takes one AdamW step under the warmup-linear-nonzero
+schedule.  ``batch_multiply`` > 1 accumulates that many independently
+sampled micro-batches into one update, their gradients' mean.
+
+Randomness: iteration ``i`` draws its rows and its dropout seeds from a
+CPU ``torch.Generator`` seeded from ``SeedSequence([seed, i])`` (the JAX
+package folds ``i`` into its key), so a resumed run replays exactly what
+the uninterrupted one would have drawn.  Torch's generators are not JAX's
+threefry, so the rows and masks differ from the JAX package's.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from gstx_torch.core import checkpoint as ckpt_lib
+from gstx_torch.core.config import GSTConfig
+from gstx_torch.core.logging import Logger, MetricsWriter
+from gstx_torch.core.profiling import trace
+from gstx_torch.data.loader import DataLoader, batch_iter
+from gstx_torch.models.encdec import GSTVisualDialog, teacher_forced_loss
+from gstx_torch.models.layers import Training
+from gstx_torch.train.optim import AdamW
+
+ROW_KEYS = ("enc_input_ids", "enc_segments", "enc_sep_indices",
+            "enc_mlm_labels", "enc_att_mask", "dec_input_ids",
+            "dec_att_mask", "dec_labels")
+IMAGE_KEYS = ("enc_image_feat", "enc_image_loc", "enc_image_mask",
+              "enc_image_target", "enc_image_label")
+
+
+def select_rows(batch: Dict[str, np.ndarray],
+                sample_indices: np.ndarray) -> Dict[str, np.ndarray]:
+    """Flatten [B, rounds, samples, ...] to rows and gather the sampled ones
+    (``gstx/train/train_gen.py:34-55``); a row's per-image tensors come from
+    image ``row // (rounds * samples)``."""
+    b, rounds, samples = batch["enc_input_ids"].shape[:3]
+    out = {}
+    for key in ROW_KEYS:
+        if key in batch:
+            x = batch[key].reshape(b * rounds * samples, batch[key].shape[-1])
+            out[key] = x[sample_indices]
+    img_idx = sample_indices // (rounds * samples)
+    for key in IMAGE_KEYS:
+        if key in batch:
+            out[key] = batch[key][img_idx]
+    return out
+
+
+def candidate_weights(dec_labels: np.ndarray) -> torch.Tensor:
+    """The sampling weight of each flattened row: 1 for a row with a label,
+    1e-9 for one without (``gstx/train/train_gen.py:100-103``: categorical
+    over ``log(max(cand, 1e-9))``).  When no row has a label (a
+    ``-select_data`` batch whose rounds all pass the threshold) the rows
+    are drawn uniformly and the loss is 0."""
+    flat = dec_labels.reshape(-1, dec_labels.shape[-1])
+    cand = (flat.sum(-1) != 0).astype(np.float32)
+    return torch.from_numpy(np.maximum(cand, np.float32(1e-9)))
+
+
+def iteration_generator(seed: int, iter_id: int) -> torch.Generator:
+    """The CPU generator of iteration ``iter_id``: a function of
+    (seed, iter_id) only."""
+    state = np.random.SeedSequence([seed, iter_id]).generate_state(
+        1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+def rows_to_device(rows, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in rows.items()}
+
+
+def row_loss(model: GSTVisualDialog, rows, train: Optional[Training]):
+    """The teacher-forced loss of a row batch on the model's device (the
+    JAX ``loss_fn``, ``gstx/train/train_gen.py:75-85``)."""
+    logits = model.score(
+        rows["enc_input_ids"], rows["enc_image_feat"], rows["enc_image_loc"],
+        rows["enc_segments"], rows["enc_att_mask"], rows["enc_image_mask"],
+        rows["dec_input_ids"], rows["dec_att_mask"], train=train)
+    return teacher_forced_loss(logits, rows["dec_labels"])
+
+
+def make_train_step(model: GSTVisualDialog, optimizer: AdamW,
+                    batch_size: int, batch_multiply: int = 1,
+                    remat: Optional[str] = None):
+    """``step(batch, gen) -> loss``: one update from a numpy batch.  Each of
+    the ``batch_multiply`` micro-steps draws ``batch_size`` rows, then the
+    seed of its dropout masks, from ``gen``; their gradients are summed and
+    divided by ``batch_multiply`` (``gstx/train/train_gen.py:86-118``).
+    The gradients stay on the parameters until the next step clears them.
+    Returns the (mean) loss as a device scalar, unsynchronised."""
+    device = model.device
+
+    def step(batch, gen: torch.Generator):
+        optimizer.zero_grad(set_to_none=True)
+        weights = candidate_weights(batch["dec_labels"])
+        losses = []
+        for _ in range(max(1, batch_multiply)):
+            idx = torch.multinomial(weights, batch_size, replacement=True,
+                                    generator=gen)
+            seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
+            rows = rows_to_device(select_rows(batch, idx.numpy()), device)
+            loss = row_loss(model, rows, Training(seed, remat))
+            loss.backward()
+            losses.append(loss.detach())
+        if batch_multiply > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(batch_multiply)
+        optimizer.step()
+        return torch.stack(losses).mean()
+
+    return step
+
+
+def init_model_and_state(config: GSTConfig, t_total: int, device):
+    """The model from a seed (bf16 compute over f32 parameters under
+    ``-dtype bfloat16``) and its optimizer."""
+    enc_cfg = config.encoder_config()
+    dtype = torch.bfloat16 if config.dtype == "bfloat16" else None
+    model = GSTVisualDialog(enc_cfg, config.decoder_config(), device=device,
+                            seed=config.seed, dtype=dtype)
+    optimizer = AdamW(model.named_parameters(), config.lr, config.image_lr,
+                      config.warmup_steps, t_total, config.min_lr,
+                      fixed_t_layer=enc_cfg.fixed_t_layer,
+                      fixed_v_layer=enc_cfg.fixed_v_layer)
+    return model, optimizer
+
+
+def load_start_checkpoint(config: GSTConfig, model: GSTVisualDialog,
+                          optimizer: AdamW):
+    """Resume or warm start from ``-start_path`` (``gstx/train/
+    train_gen.py:282-362``).  Returns ``(start_iter_id, start_exact)``.
+
+    With ``-continue`` the weights load (strictly when the file has the
+    decoder), and a checkpoint this trainer wrote (it has ``step``) whose
+    path holds the mode also restores the optimizer and the step;
+    ``start_exact`` is True for the rotating ``*_step.ckpt``, whose step
+    counts completed iterations (nothing is replayed), unlike the epoch
+    and final checkpoints, whose stored iteration runs again.  Without
+    ``-continue`` only the encoder and its heads warm-start, and when the
+    file has no decoder the LM projection is seeded from the loaded word
+    table."""
+    path = config.start_path
+    raw = ckpt_lib.restore_checkpoint(path)
+    sd = ckpt_lib.state_dict_of(raw)
+    full = any(k.startswith("decoder.") for k in sd)
+    if config.continue_training:
+        model.load_state_dict(sd, strict=full)
+        if "step" in raw and "optimizer_state_dict" in raw and \
+                config.mode in path:
+            optimizer.load_state_dict(raw["optimizer_state_dict"])
+            return (int(raw["step"]), os.path.basename(
+                path.rstrip("/")).endswith("_step.ckpt"))
+        return 0, False
+    ckpt_lib.load_encoder_part(model, sd, path, seed_lm_head=not full)
+    return 0, False
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
+              max_steps: Optional[int] = None, device="cuda",
+              stats_out: Optional[dict] = None):
+    """The training loop (``gstx/train/train_gen.py:139-279``, reference
+    train_gen.py:139-358); returns (model, optimizer).
+
+    ``stats_out``, a dict, receives per step of this run the loss
+    (``losses``) and the wall time to the end of the step on the device
+    (``step_seconds``); the first step's gradient norm per parameter
+    (``grad_norms``, by name); and each checkpoint's path, size and save
+    time (``saves``).  Reading them synchronises every step."""
+    device = torch.device(device)
+    os.makedirs(config.save_path, exist_ok=True)
+    logger = Logger(os.path.join(config.save_path, f"log_{config.mode}.txt"))
+    metrics_writer = MetricsWriter(
+        os.path.join(config.save_path, "metrics.jsonl"))
+    t_total = num_iter_epoch * 100  # train_gen.py:172 (reference :179)
+    model, optimizer = init_model_and_state(config, t_total, device)
+
+    start_iter_id, start_exact = 0, False
+    if config.start_path:
+        start_iter_id, start_exact = load_start_checkpoint(config, model,
+                                                           optimizer)
+    step_fn = make_train_step(model, optimizer, config.batch_size,
+                              config.batch_multiply,
+                              config.remat_policy if config.remat else None)
+    loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=True,
+                        num_workers=config.num_workers, seed=config.seed)
+    if stats_out is not None:
+        stats_out.update(losses=[], step_seconds=[], grad_norms={},
+                         saves=[], start_iter_id=start_iter_id)
+
+    def save(name, step):
+        path = os.path.join(config.save_path, name)
+        t0 = time.perf_counter()
+        ckpt_lib.save_checkpoint(path, model, optimizer, step)
+        if stats_out is not None:
+            stats_out["saves"].append(dict(
+                path=path, bytes=os.path.getsize(path),
+                seconds=time.perf_counter() - t0))
+
+    start_t = time.time()
+    start_epoch, start_idx = divmod(start_iter_id, max(1, num_iter_epoch))
+    iter_id = start_iter_id  # the final save works on a zero-batch run
+    with trace(config.trace_dir):
+        for epoch_id, idx, batch in batch_iter(loader, config.num_epochs,
+                                               start_epoch, start_idx):
+            iter_id = idx + epoch_id * num_iter_epoch
+            t0 = time.perf_counter()
+            loss = step_fn(batch, iteration_generator(config.seed, iter_id))
+            if stats_out is not None:
+                _sync(device)
+                stats_out["step_seconds"].append(time.perf_counter() - t0)
+                stats_out["losses"].append(float(loss))
+                if not stats_out["grad_norms"]:
+                    stats_out["grad_norms"] = {
+                        n: float(p.grad.float().norm())
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}
+            if iter_id % config.log_every == 0:
+                loss = float(loss)
+                lr_lang, _ = optimizer.current_lrs()
+                now = time.time()
+                logger.write(
+                    "[%s][LR: %.7f][Ep: %.2f][Iter: %d][Time: %5.2fs]"
+                    "[LM Loss: %.4g]" % (
+                        time.strftime("%a %d %b %y %X", time.gmtime()),
+                        lr_lang, iter_id / max(1, num_iter_epoch), iter_id,
+                        now - start_t, loss))
+                metrics_writer.log(iter_id, lm_loss=loss, lr=lr_lang)
+                start_t = now
+            # an epoch checkpoint, except for the stored iteration an epoch
+            # checkpoint's resume replays (reference train_gen.py:345); a
+            # rotating checkpoint's resume replays nothing, so its first
+            # iteration is fresh (start_exact)
+            if iter_id % num_iter_epoch == 0 and (
+                    start_exact or iter_id != start_iter_id):
+                save(f"{config.mode}_{config.chunk}_{epoch_id}.ckpt",
+                     iter_id)
+                logger.write(f"\n{epoch_id} epoch ended.")
+            if config.save_every_steps > 0 and \
+                    (iter_id + 1) % config.save_every_steps == 0:
+                # step = completed iterations: a resume replays nothing
+                save(f"{config.mode}_step.ckpt", iter_id + 1)
+            if max_steps is not None and \
+                    iter_id - start_iter_id + 1 >= max_steps:
+                break
+    save("final.ckpt", iter_id)
+    logger.close()
+    metrics_writer.close()
+    return model, optimizer

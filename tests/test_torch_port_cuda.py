@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version at
-small and ragged shapes, the launch counters, and the wrappers' refusals.
+small and ragged shapes, the launch counters, the wrappers' refusals, and
+the fused kernels under autograd.
 Marked ``cuda``; skipped on a machine without a card.  On the card:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -248,9 +249,36 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                             b, r, g, be)  # inner width not % 128
     with pytest.raises(ValueError):
         kffn.fused_dense_ln(x.t(), w, b, r, g, be)
-    w.requires_grad_(True)
-    with pytest.raises(RuntimeError):
-        kffn.fused_dense_ln(x, w, b, r, g, be)
+
+
+@pytest.mark.parametrize("kind", ["ffn", "dense_ln"])
+def test_function_grads_on_the_card(dev, kind):
+    """The autograd.Function on the card: the kernel forward (one launch,
+    none in the backward) against the plain version, and the f32
+    recompute backward against autograd through the plain version on the
+    same inputs upcast to f32; every gradient within ABS_TOL + REL_TOL *
+    |plain| (the bf16 inputs' gradients are bf16)."""
+    if kind == "ffn":
+        args = list(_ffn_args(dev, 200, 256, 512))
+        fn, plain = kffn.fused_ffn, kffn.ffn_plain
+    else:
+        args = list(_dense_ln_args(dev, 200, 384, 256))
+        fn, plain = kffn.fused_dense_ln, kffn.dense_ln_plain
+    args = [a.requires_grad_(True) for a in args]
+    cot = torch.randn(200, 256, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(9))
+    kffn.reset_launches()
+    out = fn(*args)
+    got = torch.autograd.grad(out, args, cot.to(out.dtype))
+    assert sum(kffn.launches.values()) == 1
+    with torch.no_grad():
+        _close(out, plain(*args))
+    wide = [a.detach().float().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(plain(*wide), wide,
+                               cot.to(out.dtype).float())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype
+        _close(g, w)
 
 
 F32_TOL = 2e-5  # f32 attention: summation order only

@@ -300,15 +300,15 @@ def test_cc12m_items_match_jax(data_env, mode):
 @pytest.mark.parametrize("mode", ["vd_train", "vd_eval_val",
                                   "vd_eval_test"])
 def test_other_visdial_modes_name_their_roadmap_item(data_env, mode):
-    """vd_train, of either dataset, raises naming the ROADMAP item that
-    ports it (training); the evaluation modes, ported with evaluation,
-    serve (their items: tests/test_torch_port_eval.py)."""
+    """The discriminative vd_train raises naming the ROADMAP item that
+    ports it (the discriminative trainer); the generative vd_train, ported
+    with generative training, and the evaluation modes, ported with
+    evaluation, serve (their items: tests/test_torch_port_train.py,
+    tests/test_torch_port_eval.py)."""
     _, tcfg_ = data_env
     tok = ttok.BertTokenizer(vocab_path=tcfg_.vocab_path)
     if mode == "vd_train":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 5"):
-            tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)
+        assert len(tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)) == 4
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1 item 5"):
             tvisdial.VisdialDiscDataset(tcfg_, tok)

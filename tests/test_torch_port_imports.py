@@ -44,6 +44,10 @@ def test_scan_covers_the_package():
             "gstx_torch/eval/rank_disc.py", "gstx_torch/cli/evaluate_gen.py",
             "gstx_torch/cli/evaluate_disc.py",
             "gstx_torch/core/logging.py"} <= names
+    assert {"gstx_torch/train/optim.py", "gstx_torch/train/train_gen.py",
+            "gstx_torch/cli/train_gen.py", "gstx_torch/core/checkpoint.py",
+            "gstx_torch/data/loader.py", "gstx_torch/data/cc12m.py",
+            "gstx_torch/data/visdial.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
