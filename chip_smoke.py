@@ -13,16 +13,19 @@
            fused_ffn, the evaluators' scoring chunks at context 256: the
            generative val chunk of 500 sequences, 128,000 text and 18,500
            visual rows; the discriminative chunk of 200, 51,200 and 7,400;
-           the generative test chunk of 400, 102,400 and 14,800; each
-           visual count ends in a partial 32-row block): bf16
-           fused_dense_ln,
+           the generative test chunk of 400, 102,400 and 14,800; the
+           attack evaluation's chunk of 100, 25,600 and 3,700; each visual
+           count ends in a partial 32-row block; and random_token's refill
+           of one context, 256 text rows through the attacker's layers
+           and the dialog encoder's, 37 visual rows): bf16 fused_dense_ln,
            fused_ffn, fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
            5e-3 + 1e-4 * |plain|.  Gradient rows for fused_ffn and
            fused_dense_ln at phase 8's training shapes (18,432 text rows
            x 768, F 3,072; BiOutput-t 18,432 x 1,024 -> 768; 2,664 visual
-           rows x 1,024): the autograd Function (kernel forward, f32
+           rows x 1,024) and phase 10's FGSM chunk (25,600 / 3,700 rows):
+           the autograd Function (kernel forward, f32
            recompute backward) against autograd through the plain version,
            every gradient within the bf16 tolerance, with the backward's
            time beside the forward's.  Device times (CUDA events around 20
@@ -115,10 +118,47 @@
            against the same step under -no_use_pallas within
            TRAIN_LOSS_TOL / TRAIN_GRAD_NORM_TOL, and a control whose
            dense_ln backward loses the residual's gradient, which must
-           exceed the norms' limit.
+           exceed the norms' limit; the second (warm) step's time with the
+           kernels beside the unfused one's;
+  phase 9  the port's discriminative training CLI
+           (gstx_torch.cli.train_disc.main) in-process at full width: the
+           encoder-only model, bf16 compute over f32 parameters,
+           -remat_policy small, batch 72 rows drawn from 72 dialogs x 10
+           rounds x (the positive and one negative), warm-started from the
+           encoder part of phase 6's full .ckpt, on 144 synthetic VisDial
+           v1.0 train dialogs of 100 options over phase 6's store with
+           dense pseudo-labels: (a) the reference dropout, 1 warm-up and 3
+           timed steps, no fused launch, the three losses finite, ms/step,
+           examples/s, MFU (matmul FLOPs from shapes, 3x the forward, the
+           MLM head's vocab projection included), peak memory, each
+           checkpoint's size and save time; (c) -continue from (a)'s
+           rotating checkpoint, at its stored step 4; (b) -train_dense with
+           every dropout 0 but the heads' fixed 0.1: 2 steps of 30 fused_ffn
+           and 30 fused_dense_ln launches (the encoder forward's), the first
+           step against -no_use_pallas within phase 8's limits, the
+           broken-backward control above them, and the warm steps' times
+           side by side (phases 8 and 9 share training_phase);
+  phase 10 the port's attack evaluation CLI
+           (gstx_torch.cli.evaluate_gen_attack.main) in-process at full
+           width, bf16, -use_pallas, batches of one dialog, on phase 7's val
+           set and phase 6's .ckpt: FGSM (epsilon 1) on 4 dialogs,
+           random_token with a seeded bert-base-shaped attacker saved as a
+           Hugging Face-named pytorch_model.bin (-mlm_path) on 2,
+           random_token with the dialog model's own MLM head on 1, and
+           coreference with a synthetic counter-fitted similarity and
+           dependency JSON on 2: each run's launches against those derived
+           from the code (attack_launches), the contexts a text attack
+           changed, metrics in range, scored sequences/s and peak memory.
+           Then on the first dialog's dense round the FGSM input gradient
+           of the bf16 kernel path (kernels forward, f32 recompute
+           backward) against the f32 unfused model's: cosine similarity
+           at least FGSM_COS_TOL, a control whose dense_ln backward loses
+           the residual's gradient below it, and the scores of the
+           features the kernel path perturbed, centred over the options,
+           within EVAL_SCORE_TOL["gen"] of the f32 model's.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
-after a profiled round ran 26-50% slower.  Phases 6, 7 and 8 write their
+after a profiled round ran 26-50% slower.  Phases 6 to 10 write their
 inputs and checkpoints to one temporary directory.  Prints the kernels JSON line,
 the card line, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero with no result; so does a machine without CUDA or a
@@ -127,6 +167,7 @@ directory without gstx_torch.
     python3 chip_smoke.py
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -302,7 +343,19 @@ DENSE_LN_SHAPES = [("text 24576x768->768", 24576, 768, 768),
                    ("eval test BiOutput-t 102400x1024->768", 102400, 1024,
                     768),
                    ("eval test visual tail 14800x1024->1024", 14800, 1024,
-                    1024)]
+                    1024),
+                   # the attack evaluation's chunk (one round's 100
+                   # options: 25,600 text rows, 3,700 visual rows)
+                   ("attack text 25600x768->768", 25600, 768, 768),
+                   ("attack BiOutput-t 25600x1024->768", 25600, 1024, 768),
+                   ("attack visual tail 3700x1024->1024", 3700, 1024, 1024),
+                   # random_token's refill of one 256-token context: the
+                   # attacker BertMLM's layers (text) and the dialog
+                   # encoder's own forward of one row (text, BiOutput-t
+                   # and 37 visual rows, a partial 32-row block)
+                   ("mlm text 256x768->768", 256, 768, 768),
+                   ("mlm BiOutput-t 256x1024->768", 256, 1024, 768),
+                   ("mlm visual 37x1024->1024", 37, 1024, 1024)]
 
 
 def dense_ln_inputs(torch, randn, m, k, d):
@@ -328,7 +381,11 @@ FFN_SHAPES = [("text 24576x768x3072", 24576, 768, 3072),
               ("eval disc text 51200x768x3072", 51200, 768, 3072),
               ("eval disc visual tail 7400x1024x1024", 7400, 1024, 1024),
               ("eval test text 102400x768x3072", 102400, 768, 3072),
-              ("eval test visual tail 14800x1024x1024", 14800, 1024, 1024)]
+              ("eval test visual tail 14800x1024x1024", 14800, 1024, 1024),
+              ("attack text 25600x768x3072", 25600, 768, 3072),
+              ("attack visual tail 3700x1024x1024", 3700, 1024, 1024),
+              ("mlm text 256x768x3072", 256, 768, 3072),
+              ("mlm visual 37x1024x1024", 37, 1024, 1024)]
 
 
 def ffn_inputs(torch, randn, m, d, f):
@@ -419,8 +476,9 @@ def kernel_phase(torch, kffn, kattn, kdecode):
     return entries, grad_rows(torch, kffn, held)
 
 
-# (kernel, label, dims): the training step's shapes at batch 72 (phase 8):
-# 18,432 text rows (72 x 256) and 2,664 visual rows (72 x 37)
+# (kernel, label, dims): the training step's shapes at batch 72 (phases 8
+# and 9): 18,432 text rows (72 x 256) and 2,664 visual rows (72 x 37); the
+# FGSM gradient pass's chunk (phase 10): 25,600 and 3,700
 GRAD_SHAPES = [("fused_ffn", "train text 18432x768x3072", (18432, 768, 3072)),
                ("fused_ffn", "train visual 2664x1024x1024",
                 (2664, 1024, 1024)),
@@ -429,7 +487,17 @@ GRAD_SHAPES = [("fused_ffn", "train text 18432x768x3072", (18432, 768, 3072)),
                ("fused_dense_ln", "train BiOutput-t 18432x1024->768",
                 (18432, 1024, 768)),
                ("fused_dense_ln", "train visual 2664x1024->1024",
-                (2664, 1024, 1024))]
+                (2664, 1024, 1024)),
+               ("fused_ffn", "attack text 25600x768x3072",
+                (25600, 768, 3072)),
+               ("fused_ffn", "attack visual 3700x1024x1024",
+                (3700, 1024, 1024)),
+               ("fused_dense_ln", "attack text 25600x768->768",
+                (25600, 768, 768)),
+               ("fused_dense_ln", "attack BiOutput-t 25600x1024->768",
+                (25600, 1024, 768)),
+               ("fused_dense_ln", "attack visual 3700x1024->1024",
+                (3700, 1024, 1024))]
 
 
 def grad_rows(torch, kffn, held):
@@ -1222,11 +1290,17 @@ def eval_inputs(np, tmp, vocab):
     make_synthetic_store(paths["eval.store"], val_ids + test_ids,
                          num_boxes=36, feat_dim=2048, num_classes=1601,
                          seed=1)
-    return ["-visdial_processed_train", paths["val.json"],
-            "-visdial_processed_val", paths["val.json"],
-            "-visdial_processed_test", paths["test.json"],
-            "-visdial_processed_val_dense_annotations", paths["dense.json"],
-            "-visdial_image_feats", paths["eval.store"],
+    return eval_flags(tmp)
+
+
+def eval_flags(tmp):
+    """The evaluators' data flags of :func:`eval_inputs`' files."""
+    return ["-visdial_processed_train", os.path.join(tmp, "val.json"),
+            "-visdial_processed_val", os.path.join(tmp, "val.json"),
+            "-visdial_processed_test", os.path.join(tmp, "test.json"),
+            "-visdial_processed_val_dense_annotations",
+            os.path.join(tmp, "dense.json"),
+            "-visdial_image_feats", os.path.join(tmp, "eval.store"),
             "-vd_version", "1.0", "-num_options", str(EVAL_OPTIONS),
             "-max_seq_len", "256", "-max_utt_len", "25",
             "-max_regions", "37", "-dtype", "bfloat16", "-num_workers", "4"]
@@ -1458,32 +1532,51 @@ TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_NORM_TOL = 0.5
 
 
-def train_flops(enc, dec, b, l, r, t):
-    """The matmul FLOPs of one training step's forward at batch ``b``,
-    context ``l``, ``r`` regions and ``t`` decoder tokens, counted from
-    the shapes: every weight product and attention product (causal ones
-    counted whole), the LM head included; embeddings' lookups not.  The
-    step is taken as 3x this (forward, and a backward of twice the
-    forward); recomputation is not counted."""
+def encoder_flops(enc, l, r):
+    """The matmul FLOPs of one encoder forward of one row at context ``l``
+    and ``r`` regions, counted from the shapes: every weight product and
+    attention product, the region embedding included; lookups not."""
     d, f, dv, fv, bi = (enc.hidden_size, enc.intermediate_size,
                         enc.v_hidden_size, enc.v_intermediate_size,
                         enc.bi_hidden_size)
-    n_co = len(enc.v_biattention_id)
     text = l * (2 * (4 * d * d + 2 * d * f) + 4 * l * d)
     vis = r * (2 * (4 * dv * dv + 2 * dv * fv) + 4 * r * dv)
     co = (r * (2 * 3 * dv * bi + 4 * l * bi + 2 * bi * dv + 4 * dv * fv)
           + l * (2 * 3 * d * bi + 4 * r * bi + 2 * bi * d + 4 * d * f))
     emb = r * 2 * (enc.v_feature_size + enc.v_loc_size) * dv
+    return (enc.num_hidden_layers * text + enc.v_num_hidden_layers * vis
+            + len(enc.v_biattention_id) * co + emb)
+
+
+def train_flops(enc, dec, b, l, r, t):
+    """The matmul FLOPs of one generative training step's forward at batch
+    ``b``, context ``l``, ``r`` regions and ``t`` decoder tokens, counted
+    from the shapes: the encoder (:func:`encoder_flops`), the fusion, every
+    decoder product (causal ones counted whole) and the LM head.  The step
+    is taken as 3x this (forward, and a backward of twice the forward);
+    recomputation is not counted."""
+    d, dv = enc.hidden_size, enc.v_hidden_size
     fusion = r * 2 * dv * d + l * 2 * d * d
     m = r + l
     dd, df = dec.hidden_size, dec.intermediate_size
     dec_layer = (t * (2 * 4 * dd * dd + 4 * t * dd + 2 * dd * dd
                       + 4 * m * dd + 4 * dd * df) + m * 2 * 2 * dd * dd)
-    per_row = (enc.num_hidden_layers * text + enc.v_num_hidden_layers * vis
-               + n_co * co + emb + fusion
+    per_row = (encoder_flops(enc, l, r) + fusion
                + dec.num_hidden_layers * dec_layer
                + t * 2 * dd * dec.vocab_size)
     return b * per_row
+
+
+def disc_flops(enc, b, l, r):
+    """The matmul FLOPs of one discriminative training step's forward at
+    batch ``b`` rows, context ``l`` and ``r`` regions: the encoder, the
+    poolers, the MLM head (transform and the f32 projection onto the
+    word table) and the region head; 3x this is the step."""
+    d, dv, bi = enc.hidden_size, enc.v_hidden_size, enc.bi_hidden_size
+    heads = (l * (2 * d * d + 2 * d * enc.vocab_size)
+             + r * (2 * dv * dv + 2 * dv * enc.v_target_size)
+             + 2 * (d + dv) * bi + 2 * bi * 2)
+    return b * (encoder_flops(enc, l, r) + heads)
 
 
 def train_inputs(np, tmp, vocab):
@@ -1552,36 +1645,36 @@ def train_inputs(np, tmp, vocab):
     return common, student, teacher
 
 
-def train_run(torch, counters, tag, argv, steps, card):
-    """One in-process run of the training CLI with every launch counter
-    set to 0 just before and read just after; every step's loss must be
-    finite.  Returns (stats, counts, peak GiB, wall seconds)."""
+def train_run(torch, counters, tag, cli, argv, steps, card):
+    """One in-process run of a training CLI (``cli.main``) with every
+    launch counter set to 0 just before and read just after; every step's
+    losses must be finite.  Returns (stats, counts, peak GiB)."""
     import math
-
-    from gstx_torch.cli import train_gen
 
     stats = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
-    model, optimizer = train_gen.main(argv, max_steps=steps, device="cuda",
-                                      stats_out=stats)
+    model, optimizer = cli.main(argv, max_steps=steps, device="cuda",
+                                stats_out=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counters.read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     del model, optimizer
     torch.cuda.empty_cache()
-    if len(stats["losses"]) != steps or not all(
-            math.isfinite(x) for x in stats["losses"]):
-        raise AssertionError(f"{tag}: losses {stats['losses']}")
+    losses = stats["losses"]
+    if not losses or any(len(v) != steps or not all(
+            math.isfinite(x) for x in v) for v in losses.values()):
+        raise AssertionError(f"{tag}: losses {losses}")
     log(f"[{tag}] {steps} steps from iteration {stats['start_iter_id']}: "
-        f"losses {[round(x, 4) for x in stats['losses']]}, step seconds "
-        f"{[round(x, 4) for x in stats['step_seconds']]}, main() "
-        f"{wall:.2f} s wall; launches {counts}; peak device memory "
+        + ", ".join(f"{k} {[round(x, 4) for x in v]}"
+                    for k, v in losses.items())
+        + f"; step seconds {[round(x, 4) for x in stats['step_seconds']]}, "
+        f"main() {wall:.2f} s wall; launches {counts}; peak device memory "
         f"{peak:.2f} GiB; on {card}")
-    return stats, counts, peak, wall
+    return stats, counts, peak
 
 
 def grad_norm_err(a, b):
@@ -1596,118 +1689,454 @@ def grad_norm_err(a, b):
                if not re.search(r"\.key\d?\.bias$", k))
 
 
+@contextlib.contextmanager
+def residual_lost(kffn):
+    """The control of phases 8 (b), 9 (b) and 10: inside the block the
+    fused kernels' dense_ln backward loses the residual's gradient."""
+    real = kffn.dense_ln_recompute
+
+    def lost(x, w, b, residual, gamma, beta, eps):
+        return real(x, w, b, residual * 0.0, gamma, beta, eps)
+    kffn.dense_ln_recompute = lost
+    try:
+        yield
+    finally:
+        kffn.dense_ln_recompute = real
+
+
+def training_phase(torch, counters, card, tmp, phase, cli, flops, argv_a,
+                   steps_a, save_every, step_ckpt, steps_c, argv_b):
+    """Phases 8 and 9 on the training CLI ``cli``.  (a) ``argv_a`` (the
+    reference dropout) for ``steps_a`` steps, saving the rotating
+    checkpoint every ``save_every``: no fused launch; the steps after the
+    first timed, with examples/s and MFU from ``flops`` a step, peak memory
+    and each checkpoint's size and save time.  (c) ``-continue`` from (a)'s
+    ``step_ckpt`` for ``steps_c`` steps, at its stored step.  (b)
+    ``argv_b`` (every dropout 0 but the heads' fixed one): 2 steps with
+    the kernels, per_forward() launches of each fused kernel a step (the
+    encoder forward's sites; 'small' recomputes none and the heads have
+    none), and 2 with -no_use_pallas; the first step's loss and per-tensor
+    gradient norms within TRAIN_LOSS_TOL / TRAIN_GRAD_NORM_TOL of the
+    unfused one's, a control whose dense_ln backward loses the residual's
+    gradient beyond the limit, and the second (warm) steps' times side by
+    side.  Returns (b)'s launch counts."""
+    from gstx_torch.kernels import ffn as kffn
+
+    zero = {k: 0 for k in SOURCES}
+    out_a, out_c = (os.path.join(tmp, f"train_{phase}{p}") for p in "ac")
+    stats, counts, peak = train_run(
+        torch, counters, f"phase {phase}a", cli, argv_a + [
+            "-save_every_steps", str(save_every), "-save_path", out_a],
+        steps_a, card)
+    check_launches(f"phase {phase}a", counts, zero)
+    log(f"[phase {phase}a] no fused launch, as the JAX package's gate "
+        "decides: every site's dropout is active, and maybe_fused_* "
+        "decline a site where `not deterministic and dropout_rate > 0` "
+        "(gstx/kernels/ffn.py:401,419)")
+    timed = stats["step_seconds"][1:]
+    step_s = statistics.mean(timed)
+    log(f"[phase {phase}a] {len(timed)} timed steps (after 1 warm-up): "
+        f"{step_s * 1e3:.1f} ms/step (min {min(timed) * 1e3:.1f}, max "
+        f"{max(timed) * 1e3:.1f}), {TRAIN_BATCH / step_s:.1f} examples/s, "
+        f"{flops / 1e12:.2f} TFLOP a step counted from shapes -> MFU "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak device memory "
+        f"{peak:.2f} GiB; on {card}")
+    for save in stats["saves"]:
+        log(f"[phase {phase}a] checkpoint {os.path.basename(save['path'])}"
+            f": {save['bytes'] / 1e9:.3f} GB in {save['seconds']:.2f} s")
+    # the rotating checkpoint holds the completed step count; the others
+    # go before (c) writes its own
+    for name in os.listdir(out_a):
+        if name.endswith(".ckpt") and name != step_ckpt:
+            os.remove(os.path.join(out_a, name))
+    stats_c, counts_c, _ = train_run(
+        torch, counters, f"phase {phase}c resume", cli, argv_a + [
+            "-save_every_steps", str(save_every), "-start_path",
+            os.path.join(out_a, step_ckpt), "-continue", "-save_path",
+            out_c], steps_c, card)
+    if stats_c["start_iter_id"] != steps_a:
+        raise AssertionError(f"resumed at {stats_c['start_iter_id']}, not "
+                             f"at the stored step {steps_a}")
+    check_launches(f"phase {phase}c resume", counts_c, zero)
+    log(f"[phase {phase}c] resumed at the stored step {steps_a}")
+    shutil.rmtree(out_a)
+    shutil.rmtree(out_c)
+
+    def run_b(tag, extra, steps):
+        out = os.path.join(tmp, f"train_{phase}b")
+        try:
+            return train_run(torch, counters, f"phase {phase}b {tag}", cli,
+                             argv_b + extra + ["-save_path", out], steps,
+                             card)[:2]
+        finally:
+            kffn.enable(True)
+            shutil.rmtree(out, ignore_errors=True)
+    steps_b = 2
+    stats_b, counts_b = run_b("kernels", ["-use_pallas"], steps_b)
+    check_launches(f"phase {phase}b", counts_b, dict(
+        zero, fused_ffn=per_forward() * steps_b,
+        fused_dense_ln=per_forward() * steps_b))
+    stats_u, counts_u = run_b("unfused", ["-no_use_pallas"], steps_b)
+    check_launches(f"phase {phase}b unfused", counts_u, zero)
+    with residual_lost(kffn):
+        stats_x, _ = run_b("control: dense_ln backward without the "
+                           "residual", ["-use_pallas"], 1)
+    loss_b, loss_u = stats_b["losses"]["loss"][0], \
+        stats_u["losses"]["loss"][0]
+    loss_err = abs(loss_b - loss_u) / abs(loss_u)
+    norms_b, norms_u = stats_b["grad_norms"], stats_u["grad_norms"]
+    norm_err, worst = grad_norm_err(norms_b, norms_u)
+    control, worst_x = grad_norm_err(stats_x["grad_norms"], norms_u)
+    warm_b, warm_u = stats_b["step_seconds"][1], stats_u["step_seconds"][1]
+    log(f"[phase {phase}b] largest gradient-norm difference at {worst}: "
+        f"{norms_b[worst]:.6g} against {norms_u[worst]:.6g} (the largest "
+        f"norm {max(norms_u.values()):.6g}); the control's at {worst_x}")
+    log(f"[phase {phase}b] first step, bf16 kernel path against bf16 "
+        f"unfused: loss {loss_b:.6f} / {loss_u:.6f} (relative "
+        f"{loss_err:.4g}, limit {TRAIN_LOSS_TOL}); per-tensor gradient "
+        f"norms over {len(norms_u)} tensors, largest relative difference "
+        f"{norm_err:.4g} (limit {TRAIN_GRAD_NORM_TOL}); control (dense_ln's"
+        f" residual gradient lost) {control:.4g}; second (warm) step "
+        f"{warm_b * 1e3:.1f} ms with the kernels (fused forward, f32 "
+        f"recompute backward), {warm_u * 1e3:.1f} ms unfused ("
+        f"{warm_b / warm_u:.3f}x); on {card}")
+    if not (loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_GRAD_NORM_TOL):
+        raise AssertionError(f"phase {phase}b: the kernel path's first "
+                             "step disagrees with the unfused one")
+    if not control > TRAIN_GRAD_NORM_TOL:
+        raise AssertionError(f"phase {phase}b: the broken-backward control "
+                             "passes the limit: the check cannot see it")
+    return counts_b
+
+
 def train_phase(torch, np, counters, card, tmp, vocab):
     """Phase 8: the training CLI (gstx_torch.cli.train_gen.main) in-process
     at full width: 12/6/6 encoder, 12-layer decoder, widths 768 / 1,024, a
     30,522-word vocab, bf16 compute over f32 parameters, -remat_policy
     small, batch 72, warm-started from phase 6's reference .ckpt, on
-    synthetic data of the real shapes.  (a) the student, cc12m_train
-    -select_data with the reference dropout: 1 warm-up and 5 timed steps,
-    no fused launch; (b) the teacher, vd_train enc_dec_a with every
-    dropout 0: 2 steps, 30 launches a step of each fused kernel, the first
-    step's loss and gradient norms against -no_use_pallas and a
-    broken-backward control; (c) -continue from (a)'s rotating checkpoint
-    for 2 steps, from its stored step.  Returns (b)'s launch counts."""
+    synthetic data of the real shapes, through training_phase: (a) the
+    student, cc12m_train -select_data with the reference dropout, 1
+    warm-up and 5 timed steps; (c) -continue for 2 steps; (b) the teacher,
+    vd_train enc_dec_a with every dropout 0.  Returns (b)'s launch
+    counts."""
+    from gstx_torch.cli import train_gen
     from gstx_torch.core.config import DecoderConfig, EncoderConfig
-    from gstx_torch.kernels import ffn as kffn
 
     t0 = time.perf_counter()
     common, student, teacher = train_inputs(np, tmp, vocab)
     log(f"[phase 8] inputs written in {time.perf_counter() - t0:.2f} s; "
         f"free disk {shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
-    zero = {k: 0 for k in SOURCES}
-    steps_a = 6
-    out_a = os.path.join(tmp, "train_a")
-    stats, counts, peak, _ = train_run(
-        torch, counters, "phase 8a student", common + student + [
-            "-save_every_steps", "3", "-save_path", out_a], steps_a, card)
-    check_launches("phase 8a student", counts, zero)
-    log("[phase 8a] no fused launch, as the JAX package's gate decides: "
-        "every site's dropout is active (hidden 0.3, attention 0.1), and "
-        "maybe_fused_* decline a site where `not deterministic and "
-        "dropout_rate > 0` (gstx/kernels/ffn.py:401,419)")
-    timed = stats["step_seconds"][1:]
-    step_s = statistics.mean(timed)
     flops = 3 * train_flops(EncoderConfig(), DecoderConfig(), TRAIN_BATCH,
                             256, 37, TRAIN_UTT)
-    log(f"[phase 8a] {len(timed)} timed steps (after 1 warm-up): "
-        f"{step_s * 1e3:.1f} ms/step (min {min(timed) * 1e3:.1f}, max "
-        f"{max(timed) * 1e3:.1f}), {TRAIN_BATCH / step_s:.1f} examples/s, "
-        f"{flops / 1e12:.2f} TFLOP a step counted from shapes -> MFU "
-        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f}"
-        f" TFLOP/s; peak device memory {peak:.2f} GiB; on {card}")
-    for save in stats["saves"]:
-        log(f"[phase 8a] checkpoint {os.path.basename(save['path'])}: "
-            f"{save['bytes'] / 1e9:.3f} GB in {save['seconds']:.2f} s")
-    # the rotating checkpoint holds the completed step count
-    step_ckpt = os.path.join(out_a, "cc12m_train_step.ckpt")
-    os.remove(os.path.join(out_a, "final.ckpt"))
+    return training_phase(torch, counters, card, tmp, 8, train_gen, flops,
+                          common + student, 6, 3, "cc12m_train_step.ckpt",
+                          2, common + teacher)
 
-    # (c) resume first, so (a)'s checkpoint can go before (b) writes
-    stats_c, counts_c, _, _ = train_run(
-        torch, counters, "phase 8c resume", common + student + [
-            "-save_every_steps", "3", "-start_path", step_ckpt, "-continue",
-            "-save_path", os.path.join(tmp, "train_c")], 2, card)
-    if stats_c["start_iter_id"] != steps_a:
-        raise AssertionError(f"resumed at {stats_c['start_iter_id']}, not "
-                             f"at the stored step {steps_a}")
-    check_launches("phase 8c resume", counts_c, zero)
-    log(f"[phase 8c] resumed at the stored step {steps_a}")
-    shutil.rmtree(out_a)
-    shutil.rmtree(os.path.join(tmp, "train_c"))
 
-    def teacher_run(tag, extra, steps):
-        out = os.path.join(tmp, "train_b")
-        try:
-            return train_run(torch, counters, tag, common + teacher + extra
-                             + ["-save_path", out], steps, card)
-        finally:
-            kffn.enable(True)
-            shutil.rmtree(out, ignore_errors=True)
-    steps_b = 2
-    stats_b, counts_b, _, _ = teacher_run("phase 8b teacher, kernels",
-                                          ["-use_pallas"], steps_b)
-    per_step = per_forward()  # the forward's launches; 'small' adds none
-    check_launches("phase 8b teacher", counts_b, dict(
-        zero, fused_ffn=per_step * steps_b, fused_dense_ln=per_step * steps_b))
-    stats_u, counts_u, _, _ = teacher_run("phase 8b teacher, unfused",
-                                          ["-no_use_pallas"], 1)
-    check_launches("phase 8b unfused", counts_u, zero)
+DISC_DIALOGS = 144    # 2 steps an epoch at batch 72
 
-    def residual_lost(x, w, b, residual, gamma, beta, eps):
-        return real(x, w, b, residual * 0.0, gamma, beta, eps)
-    real = kffn.dense_ln_recompute
-    kffn.dense_ln_recompute = residual_lost
+
+def disc_inputs(np, tmp, vocab):
+    """Phase 9's data in ``tmp``: DISC_DIALOGS synthetic VisDial v1.0 train
+    dialogs over phase 6's store (images 1000..1143), 10 rounds of a
+    question and 100 answer options, their dense pseudo-labels (a score in
+    [0, 1) for every option of every round), and the zero-dropout encoder
+    JSON of part (b).  Words come from phase 6's vocab.  Returns (the
+    common flags, the flags of part (b))."""
+    rng = np.random.RandomState(9)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+
+    def sample(lo, hi):
+        return " ".join(words[j] for j in
+                        rng.randint(0, len(words), rng.randint(lo, hi + 1)))
+    questions = [sample(4, 8) for _ in range(3000)]
+    answers = [sample(1, 6) for _ in range(3000)]
+
+    def rnd():
+        opts = rng.choice(len(answers), EVAL_OPTIONS, replace=False)
+        gt = int(rng.randint(EVAL_OPTIONS))
+        return {"question": int(rng.randint(len(questions))),
+                "answer": int(opts[gt]), "gt_index": gt,
+                "answer_options": [int(o) for o in opts]}
+    ids = [1000 + i for i in range(DISC_DIALOGS)]
+    root = os.path.join(tmp, "disc") + "/"
+    os.makedirs(root)
+    json.dump({"data": {"questions": questions, "answers": answers,
+                        "dialogs": [{"image_id": i, "caption": sample(8, 14),
+                                     "dialog": [rnd() for _ in
+                                                range(ROUNDS)]}
+                                    for i in ids]}},
+              open(root + "train.json", "w"))
+    json.dump([{"image_id": i, "scores": np.round(rng.rand(
+        ROUNDS, EVAL_OPTIONS), 4).tolist()} for i in ids],
+        open(root + "train_dense.json", "w"))
+    json.dump({"hidden_dropout_prob": 0.0,
+               "attention_probs_dropout_prob": 0.0,
+               "v_hidden_dropout_prob": 0.0,
+               "v_attention_probs_dropout_prob": 0.0},
+              open(root + "enc_no_dropout.json", "w"))
+    common = ["-mode", "vd_train", "-model", "enc_only_a",
+              "-vocab_path", os.path.join(tmp, "vocab.txt"),
+              "-start_path", os.path.join(tmp, "model.ckpt"),
+              "-visdial_processed_train", root + "train.json",
+              "-visdial_processed_val", root + "train.json",
+              "-visdial_processed_test", root + "train.json",
+              "-visdial_image_feats", os.path.join(tmp, "feats.store"),
+              "-vd_version", "1.0", "-num_options", str(EVAL_OPTIONS),
+              "-dtype", "bfloat16", "-batch_size", str(TRAIN_BATCH),
+              "-max_seq_len", "256", "-max_regions", "37",
+              "-remat_policy", "small", "-num_workers", "4",
+              "-log_every", "1"]
+    dense = ["-train_dense", "-visdial_processed_train_dense",
+             root + "train_dense.json",
+             "-model_enc_config", root + "enc_no_dropout.json"]
+    return common, dense
+
+
+def disc_phase(torch, np, counters, card, tmp, vocab):
+    """Phase 9: the discriminative training CLI (gstx_torch.cli.train_disc
+    .main) in-process at full width: the encoder-only model (12/6/6,
+    widths 768 / 1,024, a 30,522-word vocab), bf16 compute over f32
+    parameters, -remat_policy small, batch 72 rows of 1,440 a batch (72
+    dialogs x 10 rounds x the positive and one negative), warm-started
+    from phase 6's full .ckpt (its encoder part), on DISC_DIALOGS
+    synthetic dialogs, through training_phase: (a) the reference dropout,
+    1 warm-up and 3 timed steps; (c) -continue for 1 step; (b)
+    -train_dense with every dropout 0 but the heads' fixed 0.1.  Returns
+    (b)'s launch counts."""
+    from gstx_torch.cli import train_disc
+    from gstx_torch.core.config import EncoderConfig
+
+    t0 = time.perf_counter()
+    common, dense = disc_inputs(np, tmp, vocab)
+    log(f"[phase 9] inputs written in {time.perf_counter() - t0:.2f} s")
+    flops = 3 * disc_flops(EncoderConfig(), TRAIN_BATCH, 256, 37)
+    return training_phase(torch, counters, card, tmp, 9, train_disc, flops,
+                          common, 4, 4, "vd_train_disc_step.ckpt", 1,
+                          common + dense)
+
+
+# phase 10: dialogs of each attack run, and the FGSM input gradient's
+# cosine similarity, bf16 kernel path against the f32 unfused model, on one
+# dense round: the limit lies between the sound reading on an H100
+# (0.99969) and that of a control whose dense_ln backward loses the
+# residual's gradient (0.0174), ~60x from either in 1 - cosine
+ATTACK_DIALOGS = {"fgsm": 4, "random_token, -mlm_path": 2,
+                  "random_token": 1, "coreference": 2}
+FGSM_COS_TOL = 0.98
+
+
+def attack_inputs(torch, np, tmp, vocab):
+    """Phase 10's extra inputs in ``tmp``: a bert-base-shaped attacker
+    masked LM from a seed saved as a Hugging Face-named
+    ``pytorch_model.bin``, and for coreference a counter-fitted similarity
+    matrix (each target word 0.8 from one synonym) with its word maps and
+    a dependency JSON naming, for every round of each val dialog, the
+    first word of its first question and answer (rounds 1 and 2 of the
+    reference's numbering), so that the dense round's context changes.
+    Returns the flags of each attack run."""
+    import pickle
+
+    from gstx_torch.models.mlm import BertMLM, mlm_config
+
+    root = os.path.join(tmp, "attack") + "/"
+    os.makedirs(root)
+    attacker = BertMLM(mlm_config(), device="cuda", seed=0)
+    torch.save({k: v.cpu() for k, v in attacker.state_dict().items()},
+               root + "pytorch_model.bin")
+    del attacker
+    val = json.load(open(os.path.join(tmp, "val.json")))["data"]
+    rng = np.random.RandomState(10)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+    deps, targets = [], []
+    for d in val["dialogs"]:
+        first = [val["questions"][d["dialog"][0]["question"]].split()[0],
+                 val["answers"][d["dialog"][1]["answer"]].split()[0]]
+        targets += first
+        deps.append({"image_id": d["image_id"], "coreference": [
+            {"1": first[0], "2": first[1]} for _ in range(ROUNDS)]})
+    targets = sorted(set(targets))
+    synonyms = [words[i] for i in rng.randint(0, len(words),
+                                              len(targets))]
+    table = targets + synonyms
+    sim = np.eye(len(table), dtype=np.float32)
+    for i in range(len(targets)):
+        sim[i, len(targets) + i] = sim[len(targets) + i, i] = 0.8
+    np.save(root + "cos.npy", sim)
+    idx2word = dict(enumerate(table))
+    pickle.dump(idx2word, open(root + "i2w.pickle", "wb"))
+    pickle.dump({w: i for i, w in idx2word.items()},
+                open(root + "w2i.pickle", "wb"))
+    json.dump(deps, open(root + "coref.json", "w"))
+    return {"fgsm": ["-attack", "fgsm"],
+            "random_token, -mlm_path": [
+                "-attack", "random_token", "-mask_prob", "0.15",
+                "-mlm_path", root + "pytorch_model.bin"],
+            "random_token": ["-attack", "random_token", "-mask_prob",
+                             "0.15"],
+            "coreference": [
+                "-attack", "coreference",
+                "-cos_sim_counter_fitting", root + "cos.npy",
+                "-cos_sim_idx2word", root + "i2w.pickle",
+                "-cos_sim_word2idx", root + "w2i.pickle",
+                "-visdial_processed_val_coref_dependency",
+                root + "coref.json"]}
+
+
+def attack_launches(attack, dialogs):
+    """The fused launches of each kernel an attack run gives, derived from
+    the code: every round's chunk is scored by one forward (per_forward()
+    sites); FGSM adds the gradient pass's forward on its dense round (its
+    backward is the f32 recompute, no launch); random_token adds the
+    refill's forward every round, the attacker's 12 layers (one of each
+    kernel a layer) or the dialog encoder's own forward; coreference only
+    edits the context."""
+    from gstx_torch.models.mlm import mlm_config
+
+    each = per_forward()
+    per_dialog = {"fgsm": ROUNDS * each + each,
+                  "random_token, -mlm_path": ROUNDS * (
+                      each + mlm_config().num_hidden_layers),
+                  "random_token": ROUNDS * 2 * each,
+                  "coreference": ROUNDS * each}[attack]
+    return per_dialog * dialogs
+
+
+def fgsm_accuracy(torch, counters, card, config, ckpt, dataset):
+    """The FGSM input gradient of the first val dialog's dense round (100
+    options): the bf16 kernel path's against the f32 unfused model's by
+    cosine similarity, beside the bf16 unfused model's and a control on
+    the kernel path whose dense_ln backward loses the residual's gradient;
+    then the scores of the features the kernel path perturbed, bf16 kernel
+    path against the f32 model, centred over the options."""
+    from gstx_torch.cli.common import build_model, load_params
+    from gstx_torch.data.loader import collate
+    from gstx_torch.eval.attacks import make_chunk_scorer, make_fgsm_scorer
+    from gstx_torch.eval.rank_gen import (batch_to_device, chunk_inputs,
+                                          flatten_gen)
+    from gstx_torch.kernels import ffn as kffn
+    from gstx_torch.models.encdec import precast_
+
+    ref = load_params(build_model(config, device="cuda"), ckpt)
+    model = precast_(copy.deepcopy(ref), torch.bfloat16)
+    batch = collate([dataset.__getitem__(0, seed=0)])
+    text, images, (_, rounds, options) = flatten_gen(batch)
+    j = int(batch["round_id"][0, 0]) - 1
+    chunk = chunk_inputs(*batch_to_device(text, images, "cuda",
+                                          torch.float32, ()),
+                         j * options, (j + 1) * options, rounds * options)
+    rel = torch.from_numpy(batch["gt_relevance"][0]).to("cuda")
+    feat = chunk["enc_image_feat"]
+
+    def grad(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = make_fgsm_scorer(m).nll_grad(feat, chunk, rel)
+        torch.cuda.synchronize()
+        return g.flatten(), time.perf_counter() - t0
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    want, want_s = grad(ref)
+    counters.reset()
+    got, got_s = grad(model)
+    counts = counters.read()
+    check_launches("phase 10 FGSM gradient pass", counts, dict(
+        {k: 0 for k in SOURCES}, fused_ffn=per_forward(),
+        fused_dense_ln=per_forward()))
+    kffn.enable(False)
     try:
-        stats_x, _, _, _ = teacher_run(
-            "phase 8b control: dense_ln backward without the residual",
-            ["-use_pallas"], 1)
+        unfused, _ = grad(model)
     finally:
-        kffn.dense_ln_recompute = real
-    loss_err = abs(stats_b["losses"][0] - stats_u["losses"][0]) / \
-        abs(stats_u["losses"][0])
-    norms_b, norms_u = stats_b["grad_norms"], stats_u["grad_norms"]
-    norm_err, worst = grad_norm_err(norms_b, norms_u)
-    control, worst_x = grad_norm_err(stats_x["grad_norms"], norms_u)
-    log(f"[phase 8b] largest gradient-norm difference at {worst}: "
-        f"{norms_b[worst]:.6g} against {norms_u[worst]:.6g} (the largest "
-        f"norm {max(norms_u.values()):.6g}); the control's at {worst_x}")
-    log(f"[phase 8b] first step, bf16 kernel path against bf16 unfused: "
-        f"loss {stats_b['losses'][0]:.6f} / {stats_u['losses'][0]:.6f} "
-        f"(relative {loss_err:.4g}, limit {TRAIN_LOSS_TOL}); per-tensor "
-        f"gradient norms over {len(stats_u['grad_norms'])} tensors, largest "
-        f"relative difference {norm_err:.4g} (limit {TRAIN_GRAD_NORM_TOL}); "
-        f"control (dense_ln's residual gradient lost) {control:.4g}; "
-        f"kernel step seconds {[round(x, 4) for x in stats_b['step_seconds']]}"
-        f", unfused {[round(x, 4) for x in stats_u['step_seconds']]}; "
-        f"on {card}")
-    if not (loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_GRAD_NORM_TOL):
-        raise AssertionError("phase 8b: the kernel path's first step "
-                             "disagrees with the unfused one")
-    if not control > TRAIN_GRAD_NORM_TOL:
-        raise AssertionError("phase 8b: the broken-backward control passes "
+        kffn.enable(True)
+    with residual_lost(kffn):
+        control, _ = grad(model)
+    perturbed = feat + torch.sign(got).reshape(feat.shape)
+    with torch.no_grad():
+        s_bf = make_chunk_scorer(model)(dict(chunk,
+                                             enc_image_feat=perturbed))
+        s_32 = make_chunk_scorer(ref)(dict(chunk, enc_image_feat=perturbed))
+    err = centred_err(torch, s_bf.float(), s_32.float())
+    same_sign = float((torch.sign(got) == torch.sign(want)).float().mean())
+    sound, control_cos = cos(got, want), cos(control, want)
+    log(f"[phase 10] FGSM input gradient of dialog 0's dense round {j + 1} "
+        f"({options} options, {int((rel > 0).sum())} relevant): cosine to "
+        f"the f32 unfused model's: bf16 kernel path {sound:.6f} (limit "
+        f"{FGSM_COS_TOL}; signs equal on {same_sign:.4f} of the entries), "
+        f"bf16 unfused {cos(unfused, want):.6f}, control (dense_ln's "
+        f"residual gradient lost) {control_cos:.6f}; gradient pass "
+        f"{got_s * 1e3:.1f} ms bf16 kernels, {want_s * 1e3:.1f} ms f32; "
+        f"perturbed scores centred over the options, relative error "
+        f"{err:.4g} (limit {EVAL_SCORE_TOL['gen']}); on {card}")
+    if not (sound >= FGSM_COS_TOL and err <= EVAL_SCORE_TOL["gen"]):
+        raise AssertionError("phase 10: the bf16 kernel path's FGSM "
+                             "disagrees with the f32 model's")
+    if not control_cos < FGSM_COS_TOL:
+        raise AssertionError("phase 10: the broken-backward control passes "
                              "the limit: the check cannot see it")
-    return counts_b
+    del ref, model
+
+
+def attack_phase(torch, np, counters, card, tmp, vocab, ckpts):
+    """Phase 10: the attack evaluation CLI (gstx_torch.cli.
+    evaluate_gen_attack.main) in-process at full width, bf16, -use_pallas,
+    on phase 7's synthetic VisDial v1.0 val set and phase 6's full .ckpt,
+    batches of one dialog: each attack of ATTACK_DIALOGS with its launches
+    against attack_launches(), metrics in range, scored sequences/s and
+    peak memory; then fgsm_accuracy.  Returns the FGSM run's counts."""
+    from gstx_torch.cli import common, evaluate_gen_attack
+    from gstx_torch.data.tokenizer import BertTokenizer
+    from gstx_torch.data.visdial import VisdialGenDataset
+
+    t0 = time.perf_counter()
+    runs = attack_inputs(torch, np, tmp, vocab)
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    data = eval_flags(tmp) + ["-vocab_path", vocab_path,
+                                     "-mode", "vd_eval_val",
+                                     "-start_path", ckpts["full"],
+                                     "-use_pallas"]
+    log(f"[phase 10] inputs written in {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for attack, dialogs in ATTACK_DIALOGS.items():
+        tag = f"phase 10 {attack}"
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        metrics = evaluate_gen_attack.main(
+            data + runs[attack] + ["-save_path", os.path.join(
+                tmp, "attack_" + attack.split(",")[0])],
+            max_batches=dialogs, device="cuda", stats_out=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters.read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = attack_launches(attack, dialogs)
+        check_launches(tag, counts, dict({k: 0 for k in SOURCES},
+                                         fused_ffn=n, fused_dense_ln=n))
+        want_fgsm = dialogs if attack == "fgsm" else 0
+        if (stats["images"], stats["sequences"], stats["fgsm_chunks"]) != \
+                (dialogs, dialogs * ROUNDS * EVAL_OPTIONS, want_fgsm) or \
+                (stats["text_attacked"] > 0) != (attack != "fgsm"):
+            raise AssertionError(f"{tag}: {stats}")
+        check_metrics(tag, metrics, EVAL_OPTIONS)
+        loop = stats["loop_seconds"]
+        log(f"[{tag}] {dialogs} dialogs, {stats['sequences']} sequences in "
+            f"{stats['chunks']} chunks of {EVAL_OPTIONS} "
+            f"({stats['fgsm_chunks']} perturbed, {stats['text_attacked']} "
+            f"contexts changed): main() {wall:.2f} s wall "
+            f"with loading, batch loop {loop:.2f} s (waiting for the loader "
+            f"{stats['wait_seconds']:.2f} s) = "
+            f"{stats['sequences'] / loop:.1f} scored sequences/s; peak "
+            f"device memory {peak:.2f} GiB; on {card}")
+        out[attack] = counts
+    config = common.parse_config(data)
+    fgsm_accuracy(torch, counters, card, config, ckpts["full"],
+                  VisdialGenDataset(config, BertTokenizer(
+                      vocab_path=vocab_path), mode="vd_eval_val"))
+    return out["fgsm"]
 
 
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
@@ -1760,6 +2189,10 @@ def main():
         gen_counts, disc_counts = eval_phase(torch, np, counters, card, tmp,
                                              vocab, ckpts)
         train_counts = train_phase(torch, np, counters, card, tmp, vocab)
+        disc_train_counts = disc_phase(torch, np, counters, card, tmp,
+                                       vocab)
+        attack_counts = attack_phase(torch, np, counters, card, tmp, vocab,
+                                     ckpts)
     profile_last()
 
     kernels = []
@@ -1777,7 +2210,9 @@ def main():
                               "cli": cli_counts[name],
                               "eval_gen": gen_counts[name],
                               "eval_disc": disc_counts[name],
-                              "train": train_counts[name]},
+                              "train": train_counts[name],
+                              "train_disc": disc_train_counts[name],
+                              "attack_fgsm": attack_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -196,7 +196,7 @@ def _strip_prefixes(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _refuse_directory(path: str):
+def refuse_directory(path: str):
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
@@ -210,7 +210,7 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     (``{"model_state_dict": ...}``, possibly with DataParallel's
     ``module.`` prefixes) or the port's own ``torch.save`` of a state
     dict.  An orbax checkpoint directory of the JAX package raises."""
-    _refuse_directory(path)
+    refuse_directory(path)
     # weights_only: tensors and plain containers, no arbitrary objects
     return state_dict_of(torch.load(path, map_location="cpu",
                                     weights_only=True))
@@ -227,58 +227,63 @@ def state_dict_of(raw: dict) -> Dict[str, torch.Tensor]:
 
 def load_checkpoint(model, path: str) -> str:
     """Load a checkpoint file (:func:`read_state_dict`) into ``model`` in
-    place and return its kind, ``"full"`` or ``"encoder"``.
+    place and return its kind, ``"full"`` or ``"encoder"``
+    (:func:`load_state`)."""
+    return load_state(model, read_state_dict(path), path)
 
-    A full checkpoint (one with decoder weights) loads with
-    ``strict=True``.  An encoder-only one is strict over the encoder's
-    names: every ``encoder.*`` name must be present and no name may be
-    unknown; the fusion and decoder keep their initial weights, except the
-    LM projection, seeded from the loaded word embeddings as the
-    reference's pretrained init does (``gstx/cli/common.py::load_params``).
 
-    An encoder-only model (``use_decoder=False``, the discriminative
-    evaluator's) takes an encoder-only checkpoint with ``strict=True`` and
-    refuses a full one: the reference's discriminative checkpoints have no
-    decoder or fusion names.
+def load_state(model, sd: Dict[str, torch.Tensor], path: str) -> str:
+    """Load the state dict ``sd`` of the file ``path`` into ``model`` in
+    place and return the file's kind, ``"full"`` (it has decoder weights)
+    or ``"encoder"``.
+
+    A full file loads into a full model with ``strict=True``; into an
+    encoder-only model (``use_decoder=False``) its encoder part loads,
+    strictly over the encoder's names, and its fusion and decoder are
+    dropped, as the JAX package's ``load_params`` merges a full file into
+    the encoder-only template (``gstx/cli/common.py:202-230``): the
+    discriminative trainer starts from a generatively trained
+    encoder-decoder.  An encoder-only file loads into an encoder-only
+    model with ``strict=True``; into a full model strictly over the
+    encoder's names, the fusion and decoder keeping their initial weights
+    but the LM projection, seeded from the loaded word embeddings as the
+    reference's pretrained init does.
     """
-    sd = read_state_dict(path)
     full = any(k.startswith("decoder.") for k in sd)
-    if not model.use_decoder:
-        if full:
-            raise RuntimeError(
-                f"{path} is a full (encoder-decoder) checkpoint; the "
-                "encoder-only model (-model enc_only_a) takes an "
-                "encoder-only checkpoint")
+    if full == model.use_decoder:
         model.load_state_dict(sd, strict=True)
-        return "encoder"
-    if full:
-        model.load_state_dict(sd, strict=True)
-        return "full"
-    load_encoder_part(model, sd, path, seed_lm_head=True)
-    return "encoder"
+    else:
+        load_encoder_part(model, sd, path, seed_lm_head=not full)
+    return "full" if full else "encoder"
 
 
 def load_encoder_part(model, sd: Dict[str, torch.Tensor], path: str,
                       seed_lm_head: bool):
-    """Load the ``encoder.*`` names of ``sd`` into a full model, strictly
-    over the encoder's names (every one present; no name of ``sd`` unknown
-    to the model); the fusion and decoder keep their weights.  ``seed_lm_head``: copy the loaded word
-    table into the LM projection, as the reference's pretrained init does
-    when the file has no decoder."""
+    """Load the ``encoder.*`` names of ``sd`` into ``model``, strictly over
+    the encoder's names (every one present; no name of ``sd`` unknown to
+    the model, except the fusion and decoder names of a full file, which an
+    encoder-only model drops); the model's fusion and decoder keep their
+    weights.  ``seed_lm_head``: copy the loaded word table into a full
+    model's LM projection, as the reference's pretrained init does when
+    the file has no decoder."""
     own = model.state_dict()
     enc = {k: v for k, v in sd.items() if k.startswith("encoder.")}
+    dropped = () if model.use_decoder else ("decoder.", "vlfusion.")
     missing = sorted(k for k in own
                      if k.startswith("encoder.") and k not in enc)
-    unknown = sorted(k for k in sd if k not in own)
+    unknown = sorted(k for k in sd
+                     if k not in own and not k.startswith(dropped))
     if missing or unknown:
         raise RuntimeError(
             f"checkpoint {path}: missing encoder names "
             f"{missing[:5]}{'...' if len(missing) > 5 else ''}, unknown "
             f"names {unknown[:5]}{'...' if len(unknown) > 5 else ''}")
     model.load_state_dict(enc, strict=False)
+    if not (seed_lm_head and model.use_decoder):
+        return
     word = model.bert.embeddings.word_embeddings.weight
     lm = model.dec.lm_head.decoder.weight
-    if seed_lm_head and lm.shape == word.shape:
+    if lm.shape == word.shape:
         with torch.no_grad():
             lm.copy_(word)
 
@@ -324,5 +329,5 @@ def restore_checkpoint(path: str) -> dict:
         print(f"[checkpoint] {path} missing after an interrupted swap; "
               "restoring the surviving previous copy at .old")
         path = path + ".old"
-    _refuse_directory(path)
+    refuse_directory(path)
     return torch.load(path, map_location="cpu", weights_only=True)

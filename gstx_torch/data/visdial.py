@@ -8,9 +8,9 @@ pairs for the teacher or the questioner,
 context and a [CLS] decoder seed, ``dataloader_visdial_gen.py:460-505``)
 and the ranking modes ``vd_eval_val`` / ``vd_eval_test`` (10 rounds x
 num_options, or the last round x 100 options); the discriminative dataset
-serves ``vd_eval_val`` / ``vd_eval_test`` (full-sequence options).  The
-discriminative ``vd_train`` raises ``NotImplementedError`` naming the
-ROADMAP item that ports it (queue 1 item 5, the discriminative trainer).
+serves ``vd_train`` (the positive and random negative sequences with soft
+NSP labels, ``dataloader_visdial_disc.py:117-288``) and ``vd_eval_val`` /
+``vd_eval_test`` (full-sequence options).
 
 Questions and answers are shared index tables in the VisDial JSON, so
 tokenization is memoized per index (the reference re-tokenizes on every
@@ -353,25 +353,27 @@ class VisdialGenDataset(VisdialDatasetBase):
 
 
 class VisdialDiscDataset(VisdialDatasetBase):
-    """Discriminative dataset (dataloader_visdial_disc.py:10-475); this
-    port serves ``vd_eval_val`` and ``vd_eval_test``."""
+    """Discriminative dataset (dataloader_visdial_disc.py:10-475)."""
 
     def __init__(self, config: GSTConfig, tokenizer: BertTokenizer,
                  mode: str = "vd_train",
                  reader: Optional[FeatureStoreReader] = None):
         assert mode in ("vd_train", "vd_eval_val", "vd_eval_test")
-        if mode == "vd_train":
-            raise NotImplementedError(NOT_PORTED_TRAIN)
         super().__init__(config, tokenizer, reader)
         self.mode = mode
 
     def __len__(self) -> int:
+        if self.mode == "vd_train":
+            return self._num_points(self.data_train,
+                                    self.config.num_train_samples, self.mode)
         if self.mode == "vd_eval_val":
             return self._num_points(self.data_val,
                                     self.config.num_val_samples, self.mode)
         return len(self.data_test["dialogs"])
 
     def _data(self):
+        if self.mode == "vd_train":
+            return self.data_train
         if self.mode == "vd_eval_val":
             return self.data_train if self.config.overfit else self.data_val
         return self.data_test
@@ -383,20 +385,109 @@ class VisdialDiscDataset(VisdialDatasetBase):
         dialog = data["dialogs"][index]
         q_cache, a_cache = self._caches(data)
         img_id = dialog["image_id"]
+        if self.mode == "vd_train":
+            return self._train_item(index, dialog, q_cache, a_cache, img_id,
+                                    rng)
         if self.mode == "vd_eval_val":
             return self._eval_item(index, dialog, q_cache, a_cache, img_id,
                                    rng)
         return self._test_item(dialog, q_cache, a_cache, img_id, rng)
 
-    def _image_keys(self, img_id, rng):
+    def _image_keys(self, img_id, rng, mask_prob=0.0):
         """The discriminative items' region keys
-        (dataloader_visdial_disc.py:381-392)."""
+        (dataloader_visdial_disc.py:381-392), regions masked with
+        ``mask_prob`` (training)."""
         features, num_boxes, boxes, _, image_target = self.reader[img_id]
         feat, spat, img_mask, img_target, img_label = encode_image_input(
             features, num_boxes, boxes, image_target,
-            max_regions=self.max_regions, mask_prob=0, rng=rng)
+            max_regions=self.max_regions, mask_prob=mask_prob, rng=rng)
         return dict(image_feat=feat, image_loc=spat, image_mask=img_mask,
                     image_target=img_target, image_label=img_label)
+
+    def _negatives(self, utt, answer, tot_len, prefix, a_cache, rng):
+        """``num_negative_samples`` random wrong options of one round under
+        the max-length constraint (dataloader_visdial_disc.py:150-178):
+        each draws among the other options until one fits, dropping those
+        that do not; when none fits, the last drawn is cut to the answer's
+        length.  Returns (sequences, their option indices)."""
+        cfg = self.config
+        negatives, neg_indices = [], []
+        for _ in range(cfg.num_negative_samples):
+            all_inds = [k for k in range(100)
+                        if k != utt["gt_index"]][: self.num_options - 1]
+            tok_rand, opt_ind = None, None
+            while all_inds:
+                opt_ind = all_inds[rng.randint(len(all_inds))]
+                tok_rand = a_cache[utt["answer_options"][opt_ind]]
+                if cfg.max_seq_len >= tot_len + len(tok_rand) + 1:
+                    neg_indices.append(opt_ind)
+                    break
+                all_inds.remove(opt_ind)
+            if not all_inds:
+                tok_rand = tok_rand[: len(answer)]
+                neg_indices.append(opt_ind)
+            negatives.append(prefix.copy() + [tok_rand])
+        return negatives, neg_indices
+
+    def _train_item(self, index, dialog, q_cache, a_cache, img_id, rng):
+        """Each round's positive (the context with its answer) and
+        ``num_negative_samples`` negatives (a random wrong option in its
+        place), masked for the MLM with ``mask_prob``, with soft NSP
+        labels: [1, 0] for the positive, [0, 1] for a negative, or
+        ``[s, 1 - s]`` with the negative option's dense pseudo-label ``s``
+        under ``-train_dense`` (dataloader_visdial_disc.py:117-288).
+        [rounds, 1 + negatives, ...] sequences and the image's masked
+        regions."""
+        cfg = self.config
+        caption = self.tokenizer.encode(dialog["caption"])
+        utterances = [[caption]]
+        utterances_random, neg_indices_all = [[caption]], []
+        tot_len = len(caption) + 2
+        for utt in dialog["dialog"]:
+            q = q_cache[utt["question"]]
+            a = a_cache[utt["answer"]]
+            cur_rand = utterances[-1].copy() + [q]
+            utterances.append(utterances[-1].copy() + [q, a])
+            tot_len += len(q) + 1 + len(a) + 1
+            negatives, neg_indices = self._negatives(utt, a, tot_len,
+                                                     cur_rand, a_cache, rng)
+            utterances_random.append(negatives)
+            neg_indices_all.append(neg_indices)
+        utterances = utterances[1:]
+        utterances_random = utterances_random[1:]
+        assert len(utterances) == len(utterances_random) == NUM_ROUNDS
+
+        cols = {k: [] for k in ("tokens", "segments", "sep_indices", "mask",
+                                "next_sentence_labels", "hist_len")}
+        for j, context in enumerate(utterances):
+            row = {k: [] for k in cols}
+            for nsi, ctx in enumerate([context] + utterances_random[j]):
+                ctx, start_seg = prune_rounds(ctx, cfg.visdial_tot_rounds)
+                tok, seg, sep, mlm, _ = encode_input(
+                    ctx, start_seg, self.CLS, self.SEP, self.MASK, self.PAD,
+                    max_seq_len=cfg.max_seq_len, mask_prob=cfg.mask_prob,
+                    rng=rng)
+                row["tokens"].append(tok)
+                row["segments"].append(seg)
+                row["sep_indices"].append(sep)
+                row["mask"].append(mlm)
+                if nsi == 0:
+                    label = [1.0, 0.0]
+                elif self.dense_train is not None:
+                    score = self.dense_train[index]["scores"][j][
+                        neg_indices_all[j][nsi - 1]]
+                    label = [score, 1.0 - score]
+                else:
+                    label = [0.0, 1.0]
+                row["next_sentence_labels"].append(
+                    np.asarray(label, dtype=np.float32))
+                row["hist_len"].append(np.asarray([len(ctx) - 1],
+                                                  dtype=np.int64))
+            for k in cols:
+                cols[k].append(np.stack(row[k]))
+        item = {k: np.stack(v) for k, v in cols.items()}
+        item.update(self._image_keys(img_id, rng, mask_prob=cfg.mask_prob))
+        return item
 
     def _encode_options(self, options, rng):
         """Each option's pruned full sequence, encoded without masking."""
@@ -469,7 +560,3 @@ class VisdialDiscDataset(VisdialDatasetBase):
         item.update(self._image_keys(img_id, rng))
         return item
 
-
-NOT_PORTED_TRAIN = ("VisDial mode vd_train of the discriminative dataset "
-                    "is ported with the discriminative trainer (ROADMAP "
-                    "queue 1 item 5)")

@@ -1,0 +1,159 @@
+"""The adversarial robustness evaluation loop (the port of
+``gstx/eval/attack_eval.py``; reference ``evaluate_gen_attack.py:233-369``).
+
+Eval batches of one dialog (VisDial v1.0), one chunk a round of its
+``num_options`` candidates.  FGSM and coreference fire on the
+dense-annotated round only (``evaluate_gen_attack.py:92-100``);
+random_token refills every round's masked context (the eval dataset masks
+history tokens with ``mask_prob`` under that attack,
+``dataloader_visdial_gen.py:387``).  The batch's region features go to the
+device once, in f32, and each chunk gathers its rows there, as
+:mod:`gstx_torch.eval.rank_gen` does (JAX broadcasts them on the host);
+f32, because FGSM steps them in f32, and the model casts them to its
+activation dtype inside, as it does any features.  Scores come back to
+the host once a batch.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gstx_torch.core.config import PAD_ID, SEP_ID, GSTConfig
+from gstx_torch.eval.attacks import TextAttack, make_fgsm_scorer
+from gstx_torch.eval.metrics import NDCG, SparseGTMetrics
+from gstx_torch.eval.rank_gen import (batch_to_device, chunk_inputs,
+                                      flatten_gen, make_chunk_scorer)
+from gstx_torch.models.encdec import GSTVisualDialog
+
+
+def rebuild_segments(ids: np.ndarray, start_segment: int = 1) -> np.ndarray:
+    """Oscillating segment ids from the [SEP] positions (encode_input's,
+    data_utils.py:34-57): an utterance's tokens and its trailing [SEP]
+    share a segment; pads are 0."""
+    is_sep = (ids == SEP_ID).astype(np.int64)
+    before = np.cumsum(is_sep, axis=1) - is_sep
+    seg = (start_segment + before) % 2
+    seg[ids == PAD_ID] = 0
+    return seg
+
+
+def _text_attacked(config, text_attack, chunk, host, dep, is_dense):
+    """``(chunk, changed)``: the chunk with its context attacked on the
+    host, if this round is attacked (coreference on the dense round,
+    random_token on every round), else as it is; ``changed`` compares the
+    host ids, so counting it costs no device sync."""
+    if text_attack is None:
+        return chunk, False
+    ids = host["enc_input_ids"]
+    if config.attack == "coreference" and is_dense:
+        new = text_attack.coreference_attack(ids, host["enc_sep_indices"],
+                                             dep)
+        # a re-tokenised context can change length: the attention mask
+        # and segments follow it (the reference keeps the stale ones)
+        extra = {"enc_att_mask": (new != PAD_ID).astype(np.float32),
+                 "enc_segments": rebuild_segments(new)}
+    elif config.attack == "random_token":
+        new = text_attack.random_token_attack(
+            ids, host["enc_segments"], host["enc_att_mask"],
+            {"feat": chunk["enc_image_feat"],
+             "loc": chunk["enc_image_loc"],
+             "mask": chunk["enc_image_mask"]})
+        extra = {}
+    else:
+        return chunk, False
+    dev = chunk["enc_input_ids"].device
+    extra["enc_input_ids"] = new
+    return dict(chunk, **{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        dev, chunk[k].dtype) for k, v in extra.items()}), \
+        not np.array_equal(new, ids)
+
+
+def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
+                    coref_dependency: Optional[List[dict]] = None,
+                    text_attack: Optional[TextAttack] = None,
+                    epsilon: float = 1.0, chunk_size: int = 100,
+                    logger=None, stats_out=None) -> Dict:
+    """The attacked generative evaluation of ``model`` over ``loader``'s
+    collated ``VisdialGenDataset`` ``vd_eval_val`` batches of one dialog,
+    on the model's device; returns R@k / MRR / mean rank, and NDCG for
+    VisDial v1.0.
+
+    ``stats_out``, a dict, receives this run's ``batches``, ``images``,
+    scored ``sequences``, ``chunks``, ``fgsm_chunks`` (the chunks whose
+    features were perturbed), ``text_attacked`` (the chunks whose context
+    a text attack changed), ``loop_seconds`` and ``wait_seconds`` (as
+    :func:`gstx_torch.eval.rank_gen.rank_candidates`)."""
+    sparse, ndcg = SparseGTMetrics(), NDCG()
+    score_chunk = make_chunk_scorer(model)
+    fgsm = make_fgsm_scorer(model, epsilon) if config.attack == "fgsm" \
+        else None
+    device = model.device
+    totals = {"batches": 0, "images": 0, "sequences": 0, "chunks": 0,
+              "fgsm_chunks": 0, "text_attacked": 0, "wait_seconds": 0.0}
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    batch_idx = 0
+    while True:
+        t_wait = time.perf_counter()
+        batch = next(batches, None)
+        totals["wait_seconds"] += time.perf_counter() - t_wait
+        if batch is None:
+            break
+        text, images, (b, rounds, options) = flatten_gen(batch)
+        if b != 1 or chunk_size != options:
+            raise ValueError(
+                f"the attack evaluation takes batches of one dialog and "
+                f"chunks of its {options} options (reference :378); got "
+                f"{b} dialogs and chunks of {chunk_size}")
+        sep = batch["enc_sep_indices"].reshape(rounds * options, -1)
+        round_id = int(batch["round_id"][0, 0])
+        out = []
+        with torch.no_grad():
+            dev_text, dev_images = batch_to_device(text, images, device,
+                                                   torch.float32, ())
+            relevance = torch.from_numpy(np.asarray(
+                batch["gt_relevance"][0], np.float32)).to(device)
+            for j in range(rounds):
+                lo, hi = j * options, (j + 1) * options
+                chunk = chunk_inputs(dev_text, dev_images, lo, hi,
+                                     rounds * options)
+                # the round of the dialog from its [SEP] count
+                # (evaluate_gen_attack.py:94-96)
+                is_dense = int((sep[lo] != 0).sum() // 2) == round_id
+                if fgsm is not None and is_dense:
+                    out.append(fgsm(chunk, relevance))
+                    totals["fgsm_chunks"] += 1
+                    continue
+                host = {k: v[lo:hi] for k, v in text.items()}
+                host["enc_sep_indices"] = sep[lo:hi]
+                dep = coref_dependency[batch_idx]["coreference"][j] \
+                    if coref_dependency else {}
+                attacked, changed = _text_attacked(
+                    config, text_attack, chunk, host, dep, is_dense)
+                totals["text_attacked"] += changed
+                out.append(score_chunk(attacked))
+            scores = torch.cat(out).float().cpu().numpy().reshape(
+                1, rounds, options)
+        totals["batches"] += 1
+        totals["images"] += 1
+        totals["sequences"] += rounds * options
+        totals["chunks"] += rounds
+        sparse.observe(scores, batch["gt_option_inds"])
+        if config.vd_version == "1.0":
+            ndcg.observe(scores[np.arange(1), round_id - 1],
+                         batch["gt_relevance"])
+        batch_idx += 1
+    if stats_out is not None:
+        stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
+
+    metrics = dict(sparse.retrieve(reset=True))
+    if config.vd_version == "1.0":
+        metrics.update(ndcg.retrieve(reset=True))
+    if logger is not None:
+        for k, v in metrics.items():
+            logger.write(f"{k}: {v}")
+    return metrics

@@ -85,6 +85,11 @@ class GSTVisualDialog(nn.Module):
         self.bert.v_embeddings.compute_dtype = dtype
         number_dropout_sites(self)
 
+    def f32_params(self):
+        """The parameters :func:`precast_` leaves f32 besides the
+        LayerNorms': the decoder LM head's bias, consumed in f32."""
+        return [self.dec.lm_head.bias] if self.use_decoder else []
+
     @property
     def bert(self) -> GSTEncoderModel:
         return self.encoder.bert_pretrained.bert
@@ -118,11 +123,16 @@ class GSTVisualDialog(nn.Module):
 
     def pretrain_scores(self, input_ids, image_feat, image_loc,
                         token_type_ids=None, attention_mask=None,
-                        image_attention_mask=None):
-        """enc_only path: (prediction_t, prediction_v, seq_relationship)."""
+                        image_attention_mask=None,
+                        train: Optional[Training] = None):
+        """enc_only path: (prediction_t [B, L, vocab] f32, prediction_v
+        [B, R, v_target], seq_relationship [B, 2]).  ``train``: the
+        discriminative training forward (the encoder's dropout and
+        recomputation, the heads' pooled dropout;
+        ``gstx/models/encdec.py:119``)."""
         outs = self.encode(input_ids, image_feat, image_loc, token_type_ids,
-                           attention_mask, image_attention_mask)
-        return self.encoder.bert_pretrained.cls(*outs)
+                           attention_mask, image_attention_mask, train=train)
+        return self.encoder.bert_pretrained.cls(*outs, train=train)
 
     def nsp_scores(self, input_ids, image_feat, image_loc,
                    token_type_ids=None, attention_mask=None,
@@ -218,15 +228,16 @@ class GSTVisualDialog(nn.Module):
         return self.dec.lm_logits(h)[:, 0, :]
 
 
-def precast_(model: GSTVisualDialog, dtype=torch.bfloat16) -> GSTVisualDialog:
+def precast_(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast the weights to the activation dtype once, in place (the engine's
     bf16 precast, ``gstx/decode/dialog_engine.py:230-263``).  LayerNorm
-    parameters and the LM-head bias stay f32: they are consumed in f32.
-    Parameter objects are kept (``p.data`` is replaced), so tying holds."""
+    parameters and the model's ``f32_params()`` stay f32: they are
+    consumed in f32.  Parameter objects are kept (``p.data`` is replaced),
+    so tying holds.  Serves :class:`GSTVisualDialog` and the attacker
+    :class:`gstx_torch.models.mlm.BertMLM`."""
     keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
             for p in m.parameters()}
-    if model.use_decoder:
-        keep.add(id(model.dec.lm_head.bias))
+    keep.update(id(p) for p in model.f32_params())
     with torch.no_grad():
         for p in model.parameters():
             if id(p) not in keep and p.dtype != dtype:

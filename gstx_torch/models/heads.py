@@ -2,18 +2,28 @@
 lines 29-90): the MLM head (transform, then the tied word-embedding
 projection plus a free bias), the NSP head on the fused pooled outputs, and
 the image-region classification head.  Reference BertPreTrainingHeads; its
-parameters sit under ``encoder.bert_pretrained.cls``.  The losses come with
-the training slice.
+parameters sit under ``encoder.bert_pretrained.cls``.  Under training the
+fused pooled output is dropped at a fixed 0.1, whatever the config
+(``gstx/models/heads.py:65,83``; reference vilbert_dialog.py:1024).
+
+The discriminative losses (``gstx/models/heads.py:93-139``, reference
+``BertForMultiModalPreTraining.forward``, vilbert_dialog.py:1489-1514):
+:func:`masked_lm_loss`, :func:`masked_img_loss`, :func:`soft_nsp_loss`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gstx_torch.core.config import EncoderConfig
-from gstx_torch.models.layers import ACT2FN, LayerNorm, linear
+from gstx_torch.models.layers import (ACT2FN, LayerNorm, Training, linear,
+                                      site_of)
+
+POOLED_DROPOUT = 0.1  # the heads' nn.Dropout(0.1) (gstx/models/heads.py:65)
 
 
 class PredictionTransform(nn.Module):
@@ -57,17 +67,22 @@ class PreTrainingHeads(nn.Module):
         self.bi_seq_relationship = nn.Linear(cfg.bi_hidden_size, 2)
         self.imagePredictions = ImagePredictions(cfg)
 
-    def seq_relationship(self, pooled_t, pooled_v):
-        """The NSP logits [B, 2] from the fused pooled outputs."""
+    def seq_relationship(self, pooled_t, pooled_v,
+                         train: Optional[Training] = None):
+        """The NSP logits [B, 2] from the fused pooled outputs, dropped at
+        0.1 under ``train``."""
         if self.fusion_method == "sum":
             pooled = pooled_t + pooled_v
         elif self.fusion_method == "mul":
             pooled = pooled_t * pooled_v
         else:
             raise ValueError(self.fusion_method)
+        if train is not None:
+            pooled = train.dropout(pooled, POOLED_DROPOUT, site_of(self))
         return linear(pooled, self.bi_seq_relationship)
 
-    def forward(self, sequence_t, sequence_v, pooled_t, pooled_v):
+    def forward(self, sequence_t, sequence_v, pooled_t, pooled_v,
+                train: Optional[Training] = None):
         """Returns (prediction_t [B, L, vocab] f32, prediction_v
         [B, R, v_target], seq_relationship [B, 2])."""
         p = self.predictions
@@ -77,5 +92,53 @@ class PreTrainingHeads(nn.Module):
             + p.bias.float()
         ip = self.imagePredictions
         prediction_v = linear(ip.transform(sequence_v), ip.decoder)
-        return prediction_t, prediction_v, self.seq_relationship(pooled_t,
-                                                                 pooled_v)
+        return prediction_t, prediction_v, self.seq_relationship(
+            pooled_t, pooled_v, train)
+
+
+# ---------------------------------------------------------------------- #
+# losses
+# ---------------------------------------------------------------------- #
+
+
+def masked_lm_loss(prediction_t, mlm_labels) -> torch.Tensor:
+    """Cross-entropy with ignore_index=-1, the mean over the labelled
+    positions in f32 (vilbert_dialog.py:1444,1504-1507); 0 when every label
+    is -1, where ``F.cross_entropy`` gives NaN."""
+    logits = prediction_t.reshape(-1, prediction_t.shape[-1]).float()
+    labels = mlm_labels.reshape(-1)
+    valid = labels != -1
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def masked_img_loss(prediction_v, image_target, image_label,
+                    predict_feature: bool = False) -> torch.Tensor:
+    """Masked-region loss (vilbert_dialog.py:1489-1501), f32.  KL path:
+    the elementwise ``KLDivLoss(log_softmax(pred), target)`` summed over
+    the masked regions, over the COUNT of masked regions.  MSE path
+    (``predict_feature``): over the masked ELEMENT count, the reference's
+    ``expand_as`` denominator."""
+    masked = image_label == 1
+    mask = masked[..., None].float()
+    target = image_target.float()
+    if predict_feature:
+        per = (prediction_v.float() - target) ** 2
+        denom = (mask * torch.ones_like(per)).sum().clamp(min=1.0)
+    else:
+        logp = F.log_softmax(prediction_v.float(), dim=-1)
+        # KLDivLoss(reduction='none'): t * (log t - logp), 0 where t == 0
+        pos = target > 0
+        per = torch.where(pos, target * (torch.log(torch.where(
+            pos, target, 1.0)) - logp), -target * logp)
+        denom = masked.sum().clamp(min=1)
+    return (per * mask).sum() / denom
+
+
+def soft_nsp_loss(seq_relationship, labels) -> torch.Tensor:
+    """The soft next-sentence loss ``-(label * logprob).sum() / batch``
+    (vilbert_dialog.py:1509-1510); ``labels`` are [B, 2] soft targets."""
+    logp = F.log_softmax(seq_relationship.reshape(-1, 2).float(), dim=-1)
+    return -(labels.reshape(-1, 2).float() * logp).sum() / labels.shape[0]

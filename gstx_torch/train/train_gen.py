@@ -41,21 +41,19 @@ IMAGE_KEYS = ("enc_image_feat", "enc_image_loc", "enc_image_mask",
               "enc_image_target", "enc_image_label")
 
 
-def select_rows(batch: Dict[str, np.ndarray],
-                sample_indices: np.ndarray) -> Dict[str, np.ndarray]:
+def select_rows(batch: Dict[str, np.ndarray], sample_indices: np.ndarray,
+                row_keys=ROW_KEYS, image_keys=IMAGE_KEYS
+                ) -> Dict[str, np.ndarray]:
     """Flatten [B, rounds, samples, ...] to rows and gather the sampled ones
-    (``gstx/train/train_gen.py:34-55``); a row's per-image tensors come from
-    image ``row // (rounds * samples)``."""
-    b, rounds, samples = batch["enc_input_ids"].shape[:3]
-    out = {}
-    for key in ROW_KEYS:
-        if key in batch:
-            x = batch[key].reshape(b * rounds * samples, batch[key].shape[-1])
-            out[key] = x[sample_indices]
+    (``gstx/train/train_gen.py:34-55``, ``gstx/train/train_disc.py:64-80``);
+    a row's per-image tensors come from image ``row // (rounds *
+    samples)``.  Keys the batch lacks are left out."""
+    b, rounds, samples = batch[row_keys[0]].shape[:3]
+    total = b * rounds * samples
+    out = {k: batch[k].reshape(total, *batch[k].shape[3:])[sample_indices]
+           for k in row_keys if k in batch}
     img_idx = sample_indices // (rounds * samples)
-    for key in IMAGE_KEYS:
-        if key in batch:
-            out[key] = batch[key][img_idx]
+    out.update({k: batch[k][img_idx] for k in image_keys if k in batch})
     return out
 
 
@@ -127,15 +125,20 @@ def make_train_step(model: GSTVisualDialog, optimizer: AdamW,
     return step
 
 
-def init_model_and_state(config: GSTConfig, t_total: int, device):
+def init_model_and_state(config: GSTConfig, t_total: int, device,
+                         use_decoder: bool = True,
+                         warmup_steps: Optional[int] = None):
     """The model from a seed (bf16 compute over f32 parameters under
-    ``-dtype bfloat16``) and its optimizer."""
+    ``-dtype bfloat16``; encoder-only unless ``use_decoder``) and its
+    optimizer (warmup ``warmup_steps``, by default ``-warmup_steps``)."""
     enc_cfg = config.encoder_config()
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else None
     model = GSTVisualDialog(enc_cfg, config.decoder_config(), device=device,
-                            seed=config.seed, dtype=dtype)
+                            seed=config.seed, use_decoder=use_decoder,
+                            dtype=dtype)
     optimizer = AdamW(model.named_parameters(), config.lr, config.image_lr,
-                      config.warmup_steps, t_total, config.min_lr,
+                      config.warmup_steps if warmup_steps is None
+                      else warmup_steps, t_total, config.min_lr,
                       fixed_t_layer=enc_cfg.fixed_t_layer,
                       fixed_v_layer=enc_cfg.fixed_v_layer)
     return model, optimizer
@@ -171,45 +174,14 @@ def load_start_checkpoint(config: GSTConfig, model: GSTVisualDialog,
     return 0, False
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
-              max_steps: Optional[int] = None, device="cuda",
-              stats_out: Optional[dict] = None):
-    """The training loop (``gstx/train/train_gen.py:139-279``, reference
-    train_gen.py:139-358); returns (model, optimizer).
-
-    ``stats_out``, a dict, receives per step of this run the loss
-    (``losses``) and the wall time to the end of the step on the device
-    (``step_seconds``); the first step's gradient norm per parameter
-    (``grad_norms``, by name); and each checkpoint's path, size and save
-    time (``saves``).  Reading them synchronises every step."""
-    device = torch.device(device)
-    os.makedirs(config.save_path, exist_ok=True)
-    logger = Logger(os.path.join(config.save_path, f"log_{config.mode}.txt"))
-    metrics_writer = MetricsWriter(
-        os.path.join(config.save_path, "metrics.jsonl"))
-    t_total = num_iter_epoch * 100  # train_gen.py:172 (reference :179)
-    model, optimizer = init_model_and_state(config, t_total, device)
-
-    start_iter_id, start_exact = 0, False
-    if config.start_path:
-        start_iter_id, start_exact = load_start_checkpoint(config, model,
-                                                           optimizer)
-    step_fn = make_train_step(model, optimizer, config.batch_size,
-                              config.batch_multiply,
-                              config.remat_policy if config.remat else None)
-    loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=True,
-                        num_workers=config.num_workers, seed=config.seed)
-    if stats_out is not None:
-        stats_out.update(losses=[], step_seconds=[], grad_norms={},
-                         saves=[], start_iter_id=start_iter_id)
+def checkpoint_saver(save_path: str, model, optimizer,
+                     stats_out: Optional[dict] = None):
+    """``save(name, step)``: a training checkpoint of ``model`` and
+    ``optimizer`` at ``save_path/name``; its path, size and save time go to
+    ``stats_out["saves"]`` when ``stats_out`` is given."""
 
     def save(name, step):
-        path = os.path.join(config.save_path, name)
+        path = os.path.join(save_path, name)
         t0 = time.perf_counter()
         ckpt_lib.save_checkpoint(path, model, optimizer, step)
         if stats_out is not None:
@@ -217,35 +189,77 @@ def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
                 path=path, bytes=os.path.getsize(path),
                 seconds=time.perf_counter() - t0))
 
+    return save
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
+                 num_iter_epoch: int, start, log_name: str, log_fields,
+                 epoch_ckpt: str, step_ckpt: str,
+                 final_ckpt: Optional[str] = None,
+                 max_steps: Optional[int] = None,
+                 stats_out: Optional[dict] = None):
+    """The loop both trainers run (``gstx/train/train_gen.py:139-279``,
+    ``gstx/cli/train_disc.py:35-160``): one ``step_fn(batch, generator)
+    -> {name: device scalar}`` an iteration, from ``start = (start_iter_id,
+    start_exact)`` (:func:`load_start_checkpoint`); every ``-log_every``
+    iterations a line of ``log_name`` under ``-save_path``, whose fields
+    after the time and the ``metrics.jsonl`` record come from
+    ``log_fields(losses as floats, lr) -> (text, record)``; the checkpoint
+    ``epoch_ckpt.format(epoch=...)`` at each epoch boundary,
+    ``step_ckpt`` under ``-save_every_steps`` and ``final_ckpt``, if
+    given, at the end.
+
+    ``stats_out``, a dict, receives per step of this run each loss
+    (``losses``: a dict of lists) and the wall time to the end of the step
+    on the device (``step_seconds``); the first step's gradient norm per
+    parameter (``grad_norms``, by name); each checkpoint's path, size and
+    save time (``saves``); and ``start_iter_id``.  Reading them
+    synchronises every step."""
+    device = model.device
+    logger = Logger(os.path.join(config.save_path, log_name))
+    metrics_writer = MetricsWriter(
+        os.path.join(config.save_path, "metrics.jsonl"))
+    start_iter_id, start_exact = start
+    if stats_out is not None:
+        stats_out.update(losses={}, step_seconds=[], grad_norms={},
+                         saves=[], start_iter_id=start_iter_id)
+    save = checkpoint_saver(config.save_path, model, optimizer, stats_out)
     start_t = time.time()
-    start_epoch, start_idx = divmod(start_iter_id, max(1, num_iter_epoch))
+    start_epoch, start_idx = divmod(start_iter_id, num_iter_epoch)
     iter_id = start_iter_id  # the final save works on a zero-batch run
     with trace(config.trace_dir):
         for epoch_id, idx, batch in batch_iter(loader, config.num_epochs,
                                                start_epoch, start_idx):
             iter_id = idx + epoch_id * num_iter_epoch
             t0 = time.perf_counter()
-            loss = step_fn(batch, iteration_generator(config.seed, iter_id))
+            losses = step_fn(batch, iteration_generator(config.seed,
+                                                        iter_id))
             if stats_out is not None:
-                _sync(device)
+                sync(device)
                 stats_out["step_seconds"].append(time.perf_counter() - t0)
-                stats_out["losses"].append(float(loss))
+                for k, v in losses.items():
+                    stats_out["losses"].setdefault(k, []).append(float(v))
                 if not stats_out["grad_norms"]:
                     stats_out["grad_norms"] = {
                         n: float(p.grad.float().norm())
                         for n, p in model.named_parameters()
                         if p.grad is not None}
             if iter_id % config.log_every == 0:
-                loss = float(loss)
-                lr_lang, _ = optimizer.current_lrs()
+                lr, _ = optimizer.current_lrs()
+                text, record = log_fields(
+                    {k: float(v) for k, v in losses.items()}, lr)
                 now = time.time()
                 logger.write(
-                    "[%s][LR: %.7f][Ep: %.2f][Iter: %d][Time: %5.2fs]"
-                    "[LM Loss: %.4g]" % (
-                        time.strftime("%a %d %b %y %X", time.gmtime()),
-                        lr_lang, iter_id / max(1, num_iter_epoch), iter_id,
-                        now - start_t, loss))
-                metrics_writer.log(iter_id, lm_loss=loss, lr=lr_lang)
+                    "[%s][LR: %.7f][Ep: %.2f][Iter: %d][Time: %5.2fs]%s" % (
+                        time.strftime("%a %d %b %y %X", time.gmtime()), lr,
+                        iter_id / num_iter_epoch, iter_id, now - start_t,
+                        text))
+                metrics_writer.log(iter_id, **record)
                 start_t = now
             # an epoch checkpoint, except for the stored iteration an epoch
             # checkpoint's resume replays (reference train_gen.py:345); a
@@ -253,17 +267,48 @@ def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
             # iteration is fresh (start_exact)
             if iter_id % num_iter_epoch == 0 and (
                     start_exact or iter_id != start_iter_id):
-                save(f"{config.mode}_{config.chunk}_{epoch_id}.ckpt",
-                     iter_id)
+                save(epoch_ckpt.format(epoch=epoch_id), iter_id)
                 logger.write(f"\n{epoch_id} epoch ended.")
             if config.save_every_steps > 0 and \
                     (iter_id + 1) % config.save_every_steps == 0:
                 # step = completed iterations: a resume replays nothing
-                save(f"{config.mode}_step.ckpt", iter_id + 1)
+                save(step_ckpt, iter_id + 1)
             if max_steps is not None and \
                     iter_id - start_iter_id + 1 >= max_steps:
                 break
-    save("final.ckpt", iter_id)
+    if final_ckpt is not None:
+        save(final_ckpt, iter_id)
     logger.close()
     metrics_writer.close()
+
+
+def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
+              max_steps: Optional[int] = None, device="cuda",
+              stats_out: Optional[dict] = None):
+    """The generative training loop (``gstx/train/train_gen.py:139-279``,
+    reference train_gen.py:139-358) through :func:`run_training`, whose
+    ``stats_out`` it takes (the loss is ``loss``); returns (model,
+    optimizer)."""
+    os.makedirs(config.save_path, exist_ok=True)
+    num_iter_epoch = max(1, num_iter_epoch)
+    t_total = num_iter_epoch * 100  # train_gen.py:172 (reference :179)
+    model, optimizer = init_model_and_state(config, t_total,
+                                            torch.device(device))
+    start = (0, False)
+    if config.start_path:
+        start = load_start_checkpoint(config, model, optimizer)
+    step_fn = make_train_step(model, optimizer, config.batch_size,
+                              config.batch_multiply,
+                              config.remat_policy if config.remat else None)
+    loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=True,
+                        num_workers=config.num_workers, seed=config.seed)
+    run_training(
+        config, model, optimizer,
+        lambda batch, gen: {"loss": step_fn(batch, gen)}, loader,
+        num_iter_epoch, start, f"log_{config.mode}.txt",
+        lambda v, lr: ("[LM Loss: %.4g]" % v["loss"],
+                       dict(lm_loss=v["loss"], lr=lr)),
+        epoch_ckpt=f"{config.mode}_{config.chunk}_{{epoch}}.ckpt",
+        step_ckpt=f"{config.mode}_step.ckpt", final_ckpt="final.ckpt",
+        max_steps=max_steps, stats_out=stats_out)
     return model, optimizer

@@ -623,3 +623,147 @@ def test_evaluate_gen_bf16_on_the_card_matches_cpu_f32(dev, monkeypatch):
           f"kernel path {sound:.4g}, control {control:.4g}")
     assert sound <= EVAL_SCORE_TOL < control, (sound, control)
     assert all(np.isfinite(v) for v in metrics.values()), metrics
+
+
+def _width128_configs():
+    from gstx_torch.core.config import DecoderConfig, EncoderConfig
+
+    enc = EncoderConfig(vocab_size=160, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        v_feature_size=16, v_target_size=7,
+                        v_hidden_size=128, v_num_hidden_layers=1,
+                        v_num_attention_heads=2, v_intermediate_size=128,
+                        bi_hidden_size=128, bi_num_attention_heads=2,
+                        v_biattention_id=(0,), t_biattention_id=(1,),
+                        hidden_dropout_prob=0.0, v_hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0,
+                        v_attention_probs_dropout_prob=0.0)
+    dec = DecoderConfig(vocab_size=160, hidden_size=128, num_hidden_layers=1,
+                        num_attention_heads=2, intermediate_size=256)
+    return enc, dec
+
+
+# the fused sites of one forward of _width128_configs' encoder: one of each
+# kernel a text or visual layer, two a co-attention layer
+WIDTH128_SITES = 2 + 1 + 2
+# FGSM on the card: the input gradient's cosine similarity to the CPU f32
+# model's (chip_smoke.py's limit; this model read 0.99995 on an H100)
+FGSM_COS_TOL = 0.98
+
+
+def test_fgsm_through_the_kernels_matches_cpu_f32(dev):
+    """FGSM on a width-128 model in bf16 on the card: the gradient pass runs
+    the fused kernels forward (once each a site) and their f32 recompute
+    backward; the input gradient's cosine similarity to the same model's
+    f32 gradient on the CPU is at least FGSM_COS_TOL, and the perturbed
+    scores, centred over the options and computed from the same perturbed
+    features, within EVAL_SCORE_TOL of the f32 model's."""
+    import copy
+
+    import numpy as np
+
+    from gstx_torch.eval import attacks
+    from gstx_torch.models.encdec import GSTVisualDialog, precast_
+
+    ref = GSTVisualDialog(*_width128_configs(), device="cpu", seed=5)
+    model = precast_(copy.deepcopy(ref).to(dev), torch.bfloat16)
+    rng = np.random.RandomState(1)
+    n, seq, utt, regions = 10, 40, 8, 6
+    ids = rng.randint(104, 160, size=(n, seq))
+    ids[:, 0], ids[:, 30:] = 101, 0
+    dec_ids = rng.randint(104, 160, size=(n, utt))
+    dec_ids[:, 0], dec_ids[:, 5], dec_ids[:, 6:] = 101, 102, 0
+    chunk = {"enc_input_ids": ids, "enc_segments": np.zeros_like(ids),
+             "enc_att_mask": (ids != 0).astype(np.float32),
+             "dec_input_ids": dec_ids,
+             "dec_att_mask": (dec_ids != 0).astype(np.float32),
+             "enc_image_feat": np.repeat(rng.rand(1, regions, 16), n, 0
+                                         ).astype(np.float32),
+             "enc_image_loc": np.repeat(rng.rand(1, regions, 5), n, 0
+                                        ).astype(np.float32),
+             "enc_image_mask": np.ones((n, regions), np.float32)}
+    rel = (rng.rand(n) * (rng.rand(n) > 0.4)).astype(np.float32)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in chunk.items()}
+    cpu = {k: torch.from_numpy(v) for k, v in chunk.items()}
+    kffn.reset_launches()
+    g = attacks.make_fgsm_scorer(model).nll_grad(
+        on["enc_image_feat"], on, torch.from_numpy(rel).to(dev))
+    assert kffn.launches == {"fused_ffn": WIDTH128_SITES,
+                             "fused_dense_ln": WIDTH128_SITES}
+    want = attacks.make_fgsm_scorer(ref).nll_grad(
+        cpu["enc_image_feat"], cpu, torch.from_numpy(rel))
+    cos = float(torch.nn.functional.cosine_similarity(
+        g.cpu().flatten(), want.flatten(), dim=0))
+    perturbed = cpu["enc_image_feat"] + torch.sign(g.cpu())
+    with torch.no_grad():
+        got = attacks.make_chunk_scorer(model)(dict(
+            on, enc_image_feat=perturbed.to(dev))).float().cpu()
+        f32 = attacks.make_chunk_scorer(ref)(dict(
+            cpu, enc_image_feat=perturbed))
+    got, f32 = got - got.mean(), f32 - f32.mean()
+    err = float((got - f32).norm() / f32.norm())
+    print(f"FGSM on the card: gradient cosine {cos:.5f}, perturbed "
+          f"scores' centred relative error {err:.4g}")
+    assert cos >= FGSM_COS_TOL and err <= EVAL_SCORE_TOL, (cos, err)
+    assert not np.abs(g.cpu().numpy()[rel == 0]).any()
+
+
+def test_disc_step_grad_norms_match_unfused_on_the_card(dev):
+    """One discriminative step's losses on a width-128 encoder-only model,
+    bf16 compute over f32 parameters, every dropout 0 but the heads'
+    pooled 0.1 (one seed: one mask): with the kernels (each launched once a
+    site: 'small' recomputes no fused site) and without, the loss within
+    1e-3 and the per-tensor gradient norms within 0.5 relative, as
+    chip_smoke.py's phase 9 (b)."""
+    import numpy as np
+
+    from gstx_torch.models.encdec import GSTVisualDialog
+    from gstx_torch.models.layers import Training
+    from gstx_torch.train import train_disc
+
+    enc, dec = _width128_configs()
+    rng = np.random.RandomState(2)
+    n, seq, regions = 12, 40, 6
+    ids = rng.randint(104, 160, size=(n, seq))
+    sep = np.sort(rng.randint(5, seq, size=(n, 4)), axis=1)
+    rows = {"tokens": ids, "segments": rng.randint(0, 2, (n, seq)),
+            "sep_indices": sep, "hist_len": rng.randint(0, 4, n),
+            "mask": np.where(rng.rand(n, seq) < 0.15,
+                             rng.randint(104, 160, (n, seq)), -1),
+            "next_sentence_labels": np.repeat(
+                np.asarray([[1.0, 0.0]], np.float32), n, 0),
+            "image_feat": rng.rand(n, regions, 16).astype(np.float32),
+            "image_loc": rng.rand(n, regions, 5).astype(np.float32),
+            "image_mask": np.ones((n, regions), np.float32),
+            "image_target": rng.dirichlet(np.ones(7), (n, regions)
+                                          ).astype(np.float32),
+            "image_label": rng.randint(0, 2, (n, regions))}
+    rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in rows.items()}
+
+    class Coeffs:
+        lm_loss_coeff = nsp_loss_coeff = img_loss_coeff = 1.0
+
+    out = {}
+    for fused in (True, False):
+        model = GSTVisualDialog(enc, dec, device=dev, seed=4,
+                                use_decoder=False, dtype=torch.bfloat16)
+        kffn.enable(fused)
+        kffn.reset_launches()
+        try:
+            loss = train_disc.row_losses(model, rows, Coeffs,
+                                         Training(9, "small"))["loss"]
+            loss.backward()
+        finally:
+            kffn.enable(True)
+        want = WIDTH128_SITES if fused else 0
+        assert kffn.launches == {"fused_ffn": want, "fused_dense_ln": want}
+        out[fused] = (float(loss.detach()), {
+            n_: float(p.grad.float().norm())
+            for n_, p in model.named_parameters() if p.grad is not None})
+    (lk, nk), (lu, nu) = out[True], out[False]
+    assert abs(lk - lu) <= 1e-3 * abs(lu), (lk, lu)
+    assert nk.keys() == nu.keys()
+    worst = max(abs(nk[k] - nu[k]) / max(nu[k], 1e-12) for k in nu
+                if not k.endswith(("key.bias", "key1.bias", "key2.bias")))
+    assert worst <= 0.5, worst

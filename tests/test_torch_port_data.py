@@ -300,19 +300,13 @@ def test_cc12m_items_match_jax(data_env, mode):
 @pytest.mark.parametrize("mode", ["vd_train", "vd_eval_val",
                                   "vd_eval_test"])
 def test_other_visdial_modes_name_their_roadmap_item(data_env, mode):
-    """The discriminative vd_train raises naming the ROADMAP item that
-    ports it (the discriminative trainer); the generative vd_train, ported
-    with generative training, and the evaluation modes, ported with
-    evaluation, serve (their items: tests/test_torch_port_train.py,
-    tests/test_torch_port_eval.py)."""
+    """Every mode of both datasets serves: the vd_train modes, once
+    refused naming ROADMAP queue 1 item 5, since generative and
+    discriminative training, and the evaluation modes since evaluation
+    (their items: tests/test_torch_port_train.py,
+    tests/test_torch_port_disc.py, tests/test_torch_port_eval.py)."""
     _, tcfg_ = data_env
     tok = ttok.BertTokenizer(vocab_path=tcfg_.vocab_path)
-    if mode == "vd_train":
-        assert len(tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)) == 4
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 5"):
-            tvisdial.VisdialDiscDataset(tcfg_, tok)
-        return
     assert len(tvisdial.VisdialGenDataset(tcfg_, tok, mode=mode)) == 4
     assert len(tvisdial.VisdialDiscDataset(tcfg_, tok, mode=mode)) == 4
 

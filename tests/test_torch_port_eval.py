@@ -27,6 +27,7 @@ from gstx.cli import evaluate_disc as jdisc_cli
 from gstx.cli import evaluate_gen as jgen_cli
 from gstx.cli.common import build_model as j_build_model
 from gstx.cli.common import init_params
+from gstx.cli.common import load_params as jrank_disc_load
 from gstx.core.checkpoint import to_torch_state_dict
 from gstx.data import tokenizer as jtok
 from gstx.data import visdial as jvisdial
@@ -202,16 +203,21 @@ def test_eval_items_match_jax(env, kind, mode, attack):
 
 @pytest.mark.parametrize("kind", ["gen", "disc"])
 def test_vd_train_names_item_5(env, kind):
+    """Both datasets' vd_train, once refused naming ROADMAP queue 1 item
+    5, serve items now: the generative one since generative training, the
+    discriminative one since discriminative training (their items against
+    JAX's: tests/test_torch_port_train.py, tests/test_torch_port_disc.py)."""
     _, jcfg, _, _ = env
     tc = _port_config(jcfg)
     tok = ttok.BertTokenizer(vocab_path=tc.vocab_path)
     if kind == "gen":
-        # ported with generative training (tests/test_torch_port_train.py)
         ds = tvisdial.VisdialGenDataset(tc, tok, mode="vd_train")
         assert ds.__getitem__(0, seed=0)["dec_labels"].shape[:2] == (10, 1)
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tvisdial.VisdialDiscDataset(tc, tok, mode="vd_train")
+    ds = tvisdial.VisdialDiscDataset(tc, tok, mode="vd_train")
+    item = ds.__getitem__(0, seed=0)
+    assert item["tokens"].shape[:2] == (10, 1 + tc.num_negative_samples)
+    assert item["next_sentence_labels"].shape == (10, 2, 2)
 
 
 def _jax_flat(batch, kind):
@@ -520,8 +526,10 @@ def test_evaluators_leave_the_models_dtypes(env, kind):
 def test_enc_only_model_loads_the_bridge_strictly_and_refuses_full(env):
     """The encoder-only model owns exactly the encoder's names: the JAX
     bridge without the decoder loads strictly, so does the reference's
-    encoder-only .ckpt, and a full .ckpt is refused."""
-    args, _, params, ckpts = env
+    encoder-only .ckpt.  A full .ckpt, once refused, now gives its encoder
+    part, as JAX's load_params merges it into the encoder-only template:
+    the same NSP scores as the JAX model loaded from the same file."""
+    args, jcfg, params, ckpts = env
     from gstx_torch.cli.common import parse_config
 
     model = t_build_model(parse_config(args), device="cpu",
@@ -532,8 +540,31 @@ def test_enc_only_model_loads_the_bridge_strictly_and_refuses_full(env):
     model.load_state_dict(sd, strict=True)
     assert names == sd.keys()
     assert load_checkpoint(model, ckpts["disc"]) == "encoder"
-    with pytest.raises(RuntimeError, match="full .*checkpoint"):
-        load_checkpoint(model, ckpts["gen"])
+    extracted = t_build_model(parse_config(args), device="cpu", seed=5,
+                              use_decoder=False)
+    assert load_checkpoint(extracted, ckpts["gen"]) == "full"
+    jmodel = j_build_model(jcfg, use_decoder=False)[0]
+    jparams = jrank_disc_load(jmodel, jcfg, ckpts["gen"])
+    assert "decoder" not in jparams["params"]
+    g = np.random.RandomState(3)
+    ids = g.randint(1, 200, (3, 20))
+    feat = g.rand(3, 5, jcfg.encoder_config().v_feature_size).astype(
+        np.float32)
+    loc = g.rand(3, 5, 5).astype(np.float32)
+    seg = (np.arange(20)[None] > 9).astype(np.int64).repeat(3, 0)
+    att = np.ones((3, 20), np.float32)
+    att[1, 15:] = 0
+    img = np.ones((3, 5), np.float32)
+    want = np.asarray(jmodel.apply(jparams, ids, feat, loc, seg, att, img,
+                                   method=type(jmodel).pretrain_scores)[2])
+    with torch.no_grad():
+        got = extracted.nsp_scores(*[torch.from_numpy(a) for a in (
+            ids, feat, loc, seg, att, img)])
+        enc_only = model.nsp_scores(*[torch.from_numpy(a) for a in (
+            ids, feat, loc, seg, att, img)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SCORE_TOL)
+    # the two files hold the same encoder
+    assert torch.equal(got, enc_only)
 
 
 def test_nsp_scores_are_pretrain_scores_third_output(env):

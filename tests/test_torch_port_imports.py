@@ -48,6 +48,10 @@ def test_scan_covers_the_package():
             "gstx_torch/cli/train_gen.py", "gstx_torch/core/checkpoint.py",
             "gstx_torch/data/loader.py", "gstx_torch/data/cc12m.py",
             "gstx_torch/data/visdial.py"} <= names
+    assert {"gstx_torch/train/train_disc.py", "gstx_torch/cli/train_disc.py",
+            "gstx_torch/models/heads.py", "gstx_torch/models/mlm.py",
+            "gstx_torch/eval/attacks.py", "gstx_torch/eval/attack_eval.py",
+            "gstx_torch/cli/evaluate_gen_attack.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
