@@ -21,7 +21,8 @@
            fused_ffn, fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
-           5e-3 + 1e-4 * |plain|.  Gradient rows for fused_ffn and
+           5e-3 + 1e-4 * |plain|, also at phase 11's beam shape (B*K
+           128 rows).  Gradient rows for fused_ffn and
            fused_dense_ln at phase 8's training shapes (18,432 text rows
            x 768, F 3,072; BiOutput-t 18,432 x 1,024 -> 768; 2,664 visual
            rows x 1,024) and phase 10's FGSM chunk (25,600 / 3,700 rows):
@@ -156,9 +157,35 @@
            the residual's gradient below it, and the scores of the
            features the kernel path perturbed, centred over the options,
            within EVAL_SCORE_TOL["gen"] of the f32 model's.
+  phase 11 beam search (gstx_torch.decode.beam) at full width,
+           -use_pallas, on phase 6's .ckpt: batch 32, context 256, 37
+           regions, 18 steps.  In bf16 with the .ckpt's EOS bias (beams
+           end early): (a) K = 1 equal to greedy sample_sequence through
+           the same step, token for token; (b) K = 4 (128 rows), 30 / 30
+           fused launches (one decode_prepare), every beam's score within
+           BEAM_SCORE_TOL nats of its teacher-forced log-likelihood from
+           one cache-less pass.  Without the bias (every beam runs every
+           step): (b) again; (c) over the int8 memory with the decode
+           kernel on (quant_decode_attention 12 x 18 launches), its tokens
+           beside (b)'s; then in f32 (a) again and the cache reorder: every
+           score within BEAM_REORDER_TOL, a control that skips the reorder
+           above it.  ms a beam step and generated tok/s;
+  phase 12 the interactive demo (gstx_torch.cli.inference.main)
+           in-process at full width on phase 6's .ckpt and vocab and phase
+           7's val set: 4 scripted greedy turns under -use_pallas (30 / 30
+           launches a turn) and -no_use_pallas (0), ms a turn, both
+           transcripts side by side (a bf16 near-tie may flip a token);
+  phase 13 one GST iteration as a user runs it: python -m
+           gstx_torch.cli.selftrain -iterations 1 -chunks 1 in a
+           subprocess (each stage a process on the card) on a CC12M chunk
+           of 96 images, phase 6's .ckpt as questioner and teacher, batch
+           72, one epoch, phase 8's VisDial train set capped at 144
+           dialogs: every stage's exit code, the dialog file, both
+           final.ckpt files and the finetune's moved weights; each stage's
+           wall time and checkpoint size.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
-after a profiled round ran 26-50% slower.  Phases 6 to 10 write their
+after a profiled round ran 26-50% slower.  Phases 6 to 13 write their
 inputs and checkpoints to one temporary directory.  Prints the kernels JSON line,
 the card line, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero with no result; so does a machine without CUDA or a
@@ -355,7 +382,21 @@ DENSE_LN_SHAPES = [("text 24576x768->768", 24576, 768, 768),
                    # and 37 visual rows, a partial 32-row block)
                    ("mlm text 256x768->768", 256, 768, 768),
                    ("mlm BiOutput-t 256x1024->768", 256, 1024, 768),
-                   ("mlm visual 37x1024->1024", 37, 1024, 1024)]
+                   ("mlm visual 37x1024->1024", 37, 1024, 1024),
+                   # phase 11's decode_prepare: 32 contexts of 256 and 37
+                   # regions (1,184 visual rows, a partial 64-row block);
+                   # phase 12's one context is the mlm rows'
+                   ("beam text 8192x768->768", 8192, 768, 768),
+                   ("beam BiOutput-t 8192x1024->768", 8192, 1024, 768),
+                   ("beam visual 1184x1024->1024", 1184, 1024, 1024),
+                   # phase 13's generate stage: 96 images at batch 72 and
+                   # context 256, a batch of 72 (the training rows of
+                   # GRAD_SHAPES, forward included) and one of 24
+                   ("selftrain tail text 6144x768->768", 6144, 768, 768),
+                   ("selftrain tail BiOutput-t 6144x1024->768", 6144, 1024,
+                    768),
+                   ("selftrain tail visual 888x1024->1024", 888, 1024,
+                    1024)]
 
 
 def dense_ln_inputs(torch, randn, m, k, d):
@@ -385,7 +426,12 @@ FFN_SHAPES = [("text 24576x768x3072", 24576, 768, 3072),
               ("attack text 25600x768x3072", 25600, 768, 3072),
               ("attack visual tail 3700x1024x1024", 3700, 1024, 1024),
               ("mlm text 256x768x3072", 256, 768, 3072),
-              ("mlm visual 37x1024x1024", 37, 1024, 1024)]
+              ("mlm visual 37x1024x1024", 37, 1024, 1024),
+              # phases 11 and 13, as DENSE_LN_SHAPES
+              ("beam text 8192x768x3072", 8192, 768, 3072),
+              ("beam visual 1184x1024x1024", 1184, 1024, 1024),
+              ("selftrain tail text 6144x768x3072", 6144, 768, 3072),
+              ("selftrain tail visual 888x1024x1024", 888, 1024, 1024)]
 
 
 def ffn_inputs(torch, randn, m, d, f):
@@ -658,11 +704,12 @@ def attention_rows(torch, F, kattn, randn, held):
 def decode_rows(torch, F, kdecode, gen, held):
     """quant_decode_attention at the decode steps' shapes: B=96, 12 heads
     of 64, memory M = 37 regions + the context bucket, padded slots
-    masked and zero in K/V; plus a ragged B."""
+    masked and zero in K/V; a ragged B; and phase 11's beam rows (32 x
+    K 4)."""
     name = "quant_decode_attention"
     dev = torch.device("cuda")
     rows = []
-    for b, m in ((96, 293), (96, 229), (96, 165), (7, 229)):
+    for b, m in ((96, 293), (96, 229), (96, 165), (7, 229), (128, 293)):
         label = f"B={b} H=12 M={m} dh=64"
         h, dh = 12, 64
         # q with the K scale and 1/sqrt(dh) folded in, as the decoder makes
@@ -2139,6 +2186,374 @@ def attack_phase(torch, np, counters, card, tmp, vocab, ckpts):
     return out["fgsm"]
 
 
+BEAM_BATCH, BEAM_K, BEAM_STEPS = 32, 4, 18   # 128 rows of 18 steps
+# phase 11: |score - teacher-forced log-likelihood| of every beam, in
+# nats, the largest over the B*K beams.  The two sides sum the same up to
+# BEAM_STEPS log-probs through the same weights, one token at a time over
+# the self-attention cache and in one causal pass.
+# In bf16 they differ by rounding: ~1e-2 relative on the logits (phase 3),
+# a few thousandths of a nat a token (0.0038-0.0089 on an H100);
+# BEAM_SCORE_TOL bounds 18 tokens of ~0.02 each.  It bounds rounding and
+# nothing else: a search that skips the cache reorder reads 0.14 nats in
+# bf16, inside it, and the int8 memory's sound search reads 0.16, above
+# that control, so no limit in bf16 or over the int8 memory separates a
+# broken reorder from rounding.
+BEAM_SCORE_TOL = 0.5
+# The reorder's gate is f32, where the two sides differ by summation order
+# only (~1e-6 a logit).  A search that skips the reorder scores each step
+# over another beam's history: at random weights the history moves a
+# logit little (0.14 nats over 18 steps), but some hundred times f32's
+# rounding, so BEAM_REORDER_TOL sits between them and that control must
+# exceed it.
+BEAM_REORDER_TOL = 1e-2
+
+
+def beam_error(torch, model, state, kv, mask):
+    """The largest |score - log-likelihood| over every beam of ``state``,
+    and the largest per scored token: each beam's tokens re-scored in one
+    cache-less teacher-forced pass (``decode_logits_cached`` over the
+    memory K/V, no self-attention cache), summed up to and including its
+    first EOS."""
+    import torch.nn.functional as F
+
+    from gstx_torch.core.config import SEP_ID
+
+    tokens = state.tokens.reshape(-1, state.tokens.shape[-1])
+    with torch.no_grad():
+        logits = model.decode_logits_cached(
+            tokens[:, :-1], torch.ones_like(tokens[:, :-1]), kv, mask)
+        logp = F.log_softmax(logits.float(), -1).gather(
+            -1, tokens[:, 1:, None])[..., 0]
+    is_eos = (tokens[:, 1:] == SEP_ID).long()
+    scored = (is_eos.cumsum(-1) - is_eos) == 0
+    ll = (logp * scored).sum(-1)
+    err = (ll - state.scores.reshape(-1)).abs()
+    return float(err.max()), float((err / scored.sum(-1)).max())
+
+
+def beam_phase(torch, np, counters, card, ckpt):
+    """Phase 11: beam search (gstx_torch.decode.beam) at full width,
+    -use_pallas, on phase 6's .ckpt: BEAM_BATCH contexts of 256 with 37
+    regions, BEAM_STEPS steps.  In bf16 with the .ckpt's EOS bias (beams
+    end early): (a) K = 1 against greedy sample_sequence through the same
+    step, token for token; (b) K = BEAM_K, 30 / 30 fused launches, every
+    beam's score against its teacher-forced log-likelihood within
+    BEAM_SCORE_TOL.  Without the bias (every beam runs every step): (b)
+    again in bf16; (c) over the int8 memory with the decode kernel on; and
+    in f32 (a) and the reorder check: every score within BEAM_REORDER_TOL,
+    a control that skips the cache reorder above it.  Returns the launch
+    counts of (b) and (c), and a function that profiles one bf16 and one
+    f32 search, to be called after every timed phase."""
+    from gstx_torch.core.config import SEP_ID
+    from gstx_torch.decode import beam
+    from gstx_torch.decode.sampler import (DecodeSettings, init_cache,
+                                           sample_sequence)
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.models import decoder as tdecoder
+    from gstx_torch.models.encdec import precast_
+
+    from gstx_torch.cli import common
+
+    t0 = time.perf_counter()
+    model = precast_(common.load_params(common.build_model(
+        common.parse_config([]), device="cuda"), ckpt))
+    batch = make_batch(np, model.enc_config, BEAM_BATCH, 256, 37)
+    args = [torch.from_numpy(batch[k]).cuda() for k in
+            ("enc_input_ids", "enc_image_feat", "enc_image_loc",
+             "enc_segments")]
+    args += [(args[0] != 0).long(),
+             torch.from_numpy(batch["enc_image_mask"]).cuda()]
+    log(f"[phase 11] model loaded in {time.perf_counter() - t0:.2f} s")
+    b, steps = BEAM_BATCH, BEAM_STEPS
+
+    def prepared(k, quantize=False):
+        mem_kv, mem_mask = model.decode_prepare(*args)
+        if quantize:
+            mem_kv = tdecoder.quantize_memory_kv(mem_kv, mem_mask,
+                                                 torch.bfloat16)
+        kv, mask = beam.tile_for_beams((mem_kv, mem_mask), k)
+
+        def step(tok, pos, caches):
+            return model.decode_step(tok, pos, caches, kv, mask)
+        return step, kv, mask, init_cache(model.dec_config, b * k, steps + 1,
+                                          model.dtype, "cuda")
+
+    @torch.no_grad()
+    def search(tag, k, quantize=False):
+        """decode_prepare and the search with the counters set to 0 just
+        before and read just after, the search alone timed; returns
+        (state, best tokens, max |err| and per token, counts)."""
+        counters.reset()
+        step, kv, mask, caches = prepared(k, quantize)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = beam.beam_steps(step, caches, b, k, steps)
+        seq, _ = beam.best_beam(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters.read()
+        err = beam_error(torch, model, state, kv, mask)
+        log(f"[phase 11 {tag}] K={k}, {b * k} rows x {steps} steps, "
+            f"{str(model.dtype)[6:]}: {wall * 1e3 / steps:.2f} ms a beam "
+            f"step, {b * k * steps / wall:.1f} generated tok/s (B*K*steps "
+            f"over the search's wall) on {card}; every beam's score vs its "
+            f"teacher-forced log-likelihood: max |err| {err[0]:.6f} nats "
+            f"({err[1]:.6f} a scored token); "
+            f"{int(state.finished.sum())} of {b * k} beams finished; best "
+            f"lengths {(seq != 0).sum(-1).tolist()}")
+        return state, seq, err, counts
+
+    @torch.no_grad()
+    def greedy_check(tag):
+        _, seq1, _, _ = search(f"a {tag}", 1)
+        step, _, _, caches = prepared(1)
+        greedy = sample_sequence(
+            step, torch.Generator(device="cuda").manual_seed(0), b, caches,
+            DecodeSettings(max_steps=steps, temperature=1.0, top_k=1,
+                           ngram_blocking_size=0), device="cuda")
+        diff = int((seq1 != greedy).sum())
+        log(f"[phase 11 a {tag}] K=1 vs greedy sample_sequence: {diff} of "
+            f"{seq1.numel()} tokens differ")
+        if diff:
+            raise AssertionError("phase 11 (a): K=1 beam search is not "
+                                 "greedy")
+        return seq1
+
+    per_prepare = per_forward()
+    search("warm-up", BEAM_K)
+    seq1 = greedy_check("bf16, EOS bias")
+    _, seq, err, counts = search("b bf16, EOS bias", BEAM_K)
+    check_launches("phase 11 b", counts, dict(
+        {k: 0 for k in SOURCES}, fused_ffn=per_prepare,
+        fused_dense_ln=per_prepare))
+
+    with torch.no_grad():
+        model.dec.lm_head.bias[SEP_ID] -= EOS_BIAS
+    _, l_seq, l_err, _ = search("b bf16, no EOS bias", BEAM_K)
+    kdecode.enable_kernel()
+    try:
+        _, q_seq, q_err, q_counts = search("c int8 + decode kernel, no EOS "
+                                           "bias", BEAM_K, True)
+    finally:
+        kdecode.enable_kernel(False)
+    check_launches("phase 11 c", q_counts, dict(
+        {k: 0 for k in SOURCES}, fused_ffn=per_prepare,
+        fused_dense_ln=per_prepare,
+        quant_decode_attention=model.dec_config.num_hidden_layers * steps))
+    log(f"[phase 11 c] best tokens equal to bf16's at "
+        f"{float((q_seq == l_seq).float().mean()):.4f}")
+    for i in range(2):
+        log(f"[phase 11] row {i}: (a) {seq1[i].tolist()}; (b) "
+            f"{seq[i].tolist()}\n[phase 11] row {i} without the bias: (b) "
+            f"{l_seq[i].tolist()}\n[phase 11] row {i} without the bias: "
+            f"(c) {q_seq[i].tolist()}")
+    if max(err[0], l_err[0], q_err[0]) > BEAM_SCORE_TOL:
+        raise AssertionError("phase 11 (b)/(c): bf16 beam scores outside "
+                             "BEAM_SCORE_TOL")
+
+    precast_(model, torch.float32)
+    greedy_check("f32, no EOS bias")
+    _, _, f_err, _ = search("b f32, no EOS bias", BEAM_K)
+    reorder = beam._reorder_
+    beam._reorder_ = lambda caches, rows: None
+    try:
+        _, _, c_err, _ = search("b f32 control, no cache reorder", BEAM_K)
+    finally:
+        beam._reorder_ = reorder
+    log(f"[phase 11 b] the cache reorder in f32: max |err| {f_err[0]:.6f} "
+        f"nats, control {c_err[0]:.6f}, limit {BEAM_REORDER_TOL}")
+    if not f_err[0] <= BEAM_REORDER_TOL < c_err[0]:
+        raise AssertionError("phase 11 (b): f32 beam scores outside "
+                             "BEAM_REORDER_TOL, or the control inside it")
+
+    @torch.no_grad()
+    def profile_searches():
+        """Where a beam step's time goes: a K = BEAM_K search without the
+        EOS bias under torch.profiler, in bf16 and in f32 (the device's
+        busy time and launches against the wall)."""
+        for dtype in (torch.bfloat16, torch.float32):
+            precast_(model, dtype)
+            step, _, _, caches = prepared(BEAM_K)
+            profiled(torch, lambda: beam.beam_steps(step, caches, b, BEAM_K,
+                                                    steps),
+                     f"beam search, {b * BEAM_K} rows x {steps} steps, "
+                     f"{str(dtype)[6:]}", card, "phase 11 profile")
+    return counts, q_counts, profile_searches
+
+
+DEMO_TURNS = ["is there a dog", "what color is the car",
+              "how many people are there", "is it sunny"]
+
+
+def unbiased_ckpt(torch, ckpt, path):
+    """Phase 6's .ckpt at ``path`` without its EOS bias: each name of the
+    LM head's bias (two names of one tensor) cloned and lowered by
+    EOS_BIAS at SEP, as phase 11 does in memory."""
+    from gstx_torch.core.config import SEP_ID
+
+    state = torch.load(ckpt, map_location="cpu", mmap=True,
+                       weights_only=True)["model_state_dict"]
+    for name in ("decoder.decoder.lm_head.bias",
+                 "decoder.decoder.lm_head.decoder.bias"):
+        state[name] = state[name].clone()
+        state[name][SEP_ID] -= EOS_BIAS
+    torch.save({"model_state_dict": state}, path)
+    return path
+
+
+def demo_phase(torch, counters, card, tmp, ckpt, vocab_path):
+    """Phase 12: the interactive demo (gstx_torch.cli.inference.main)
+    in-process at full width, bf16, on phase 6's .ckpt without its EOS
+    bias (greedy decoding with it ends every reply at its first token),
+    phase 6's vocab and phase 7's val set: DEMO_TURNS scripted turns,
+    greedy (-top_k 1), max_turns 4, under -use_pallas (one encoder forward
+    a turn: 30 fused_ffn and 30 fused_dense_ln launches) and
+    -no_use_pallas (0).  Every reply must be non-empty.  Returns the
+    -use_pallas run's counts."""
+    from gstx_torch.cli import inference
+    from gstx_torch.kernels import ffn as kffn
+
+    demo_ckpt = unbiased_ckpt(torch, ckpt, os.path.join(tmp, "demo.ckpt"))
+    argv = eval_flags(tmp) + [
+        "-vocab_path", vocab_path, "-start_path", demo_ckpt, "-top_k", "1",
+        "-max_dec_len", "18"]
+    transcripts, out = {}, None
+    for flag in ("-use_pallas", "-no_use_pallas"):
+        lines, marks = [], []
+        asked = iter(DEMO_TURNS)
+
+        def scripted(prompt):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return next(asked)
+
+        counters.reset()
+        inference.main(argv + [flag], input_fn=scripted,
+                       output_fn=lines.append, max_turns=len(DEMO_TURNS),
+                       device="cuda")
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts = counters.read()
+        n = per_forward() * len(DEMO_TURNS) if flag == "-use_pallas" else 0
+        check_launches(f"phase 12 {flag}", counts, dict(
+            {k: 0 for k in SOURCES}, fused_ffn=n, fused_dense_ln=n))
+        words = [len(line[5:].split()) for line in lines
+                 if line.startswith("bot: ")]
+        if len(words) != len(DEMO_TURNS) or not all(words):
+            raise AssertionError(f"phase 12 {flag}: {lines}")
+        turn_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        log(f"[phase 12 {flag}] {len(words)} turns: ms a turn "
+            + ", ".join(f"{t:.1f}" for t in turn_ms) + f" on {card}; "
+            f"reply lengths {words} words")
+        transcripts[flag] = lines
+        if out is None:
+            out = counts
+    kffn.enable(True)
+    log("[phase 12] transcripts (-use_pallas | -no_use_pallas):")
+    for a, b in zip(*transcripts.values()):
+        log(f"[phase 12]   {a!r} | {b!r}")
+    os.remove(demo_ckpt)
+    return out
+
+
+SELFTRAIN_IMAGES = 96
+
+
+def selftrain_phase(torch, np, card, tmp, ckpt, vocab):
+    """Phase 13: one GST iteration as a user runs it, ``python -m
+    gstx_torch.cli.selftrain -iterations 1 -chunks 1`` in a subprocess, each
+    stage a process on the card: phase 6's .ckpt as questioner and teacher,
+    a CC12M chunk of SELFTRAIN_IMAGES images (store and captions), batch 72,
+    one epoch, phase 8's VisDial train set capped at 144 dialogs for the
+    finetune.  Checks each stage's exit code, the dialog file (10 rounds
+    with answer_ppl), both final.ckpt files and that the finetune moved
+    the weights; prints each stage's wall time, the utterances' lengths
+    and each checkpoint's size."""
+    from gstx_torch.data.feature_store import make_synthetic_store
+
+    root = os.path.join(tmp, "selftrain")
+    feats, caps = os.path.join(root, "feats"), os.path.join(root, "caps")
+    os.makedirs(feats)
+    os.makedirs(caps)
+    ids = list(range(3000, 3000 + SELFTRAIN_IMAGES))
+    make_synthetic_store(os.path.join(feats, "cc12m_img_feat_0.store"), ids,
+                         num_boxes=36, feat_dim=2048, num_classes=1601,
+                         seed=3)
+    rng = np.random.RandomState(3)
+    words = [w for w in vocab[104:] if not w.startswith("##")]
+    with open(os.path.join(caps, "cc12m_captions_0.json"), "w") as f:
+        json.dump([{"image_id": i, "caption": " ".join(
+            words[j] for j in rng.randint(0, len(words),
+                                          rng.randint(8, 17)))}
+            for i in ids], f)
+    train_json = os.path.join(tmp, "train", "visdial_train.json")
+    out_dir = os.path.join(root, "out")
+    cmd = [sys.executable, "-m", "gstx_torch.cli.selftrain",
+           "-iterations", "1", "-chunks", "1",
+           "-start_path_q", ckpt, "-start_path_a", ckpt,
+           "-cc12m_image_feats", feats, "-cc12m_caption_dir", caps,
+           "-dialog_root", os.path.join(root, "dialogs"),
+           "-save_path", out_dir,
+           "-extra", "-vocab_path", os.path.join(tmp, "vocab.txt"),
+           "-dtype", "bfloat16", "-use_pallas", "-batch_size", "72",
+           "-num_epochs", "1", "-max_seq_len", "256", "-max_regions", "37",
+           "-max_dec_len", "18", "-num_dialog_rounds", str(ROUNDS),
+           "-remat_policy", "small", "-num_workers", "4", "-log_every", "1",
+           # a random model's answers are far above the reference's
+           # selection threshold of 50: select every row
+           "-threshold", "1000000000",
+           "-visdial_processed_train", train_json,
+           "-visdial_processed_val", train_json,
+           "-visdial_processed_test", train_json,
+           "-visdial_image_feats", os.path.join(tmp, "feats.store"),
+           "-num_train_samples", "144"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[selftrain] stage"):
+            log(f"[phase 13] {line}")
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"phase 13: selftrain exited {proc.returncode}")
+    dialog_path = os.path.join(root, "dialogs", "iter1",
+                               "cc12m_dialogs_0.txt")
+    with open(dialog_path) as f:
+        dialogs = json.load(f)
+    if not dialogs or any(
+            len(d["dialog"]) != ROUNDS
+            or not all("answer_ppl" in r for r in d["dialog"])
+            for d in dialogs):
+        raise AssertionError("phase 13: bad dialog file")
+    # the .ckpt's EOS bias ends most utterances early: their lengths
+    for key in ("question", "answer"):
+        n = [len(r[key].split()) for d in dialogs for r in d["dialog"]]
+        log(f"[phase 13] {key}s: {len(n)}, mean {statistics.mean(n):.3f} "
+            f"words, longest {max(n)}, empty {n.count(0)}")
+    finals = {k: os.path.join(out_dir, f"{k}_iter1", "final.ckpt")
+              for k in ("student", "finetune")}
+    states = {k: torch.load(p, map_location="cpu", mmap=True,
+                            weights_only=True)["model_state_dict"]
+              for k, p in finals.items()}
+    name = "decoder.decoder.lm_head.decoder.weight"
+    moved = not torch.equal(states["student"][name], states["finetune"][name])
+    log(f"[phase 13] selftrain, 1 iteration of 1 chunk "
+        f"({SELFTRAIN_IMAGES} images): {wall:.2f} s wall; "
+        f"{len(dialogs)} dialogs of {ROUNDS} rounds; checkpoints "
+        + ", ".join(f"{k} {os.path.getsize(p) / 1e9:.3f} GB"
+                    for k, p in finals.items())
+        + f"; the finetune moved the weights: {moved}; on {card}")
+    del states
+    if not moved:
+        raise AssertionError("phase 13: the finetune left the student's "
+                             "weights unchanged")
+    shutil.rmtree(root)
+
+
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
@@ -2193,7 +2608,14 @@ def main():
                                        vocab)
         attack_counts = attack_phase(torch, np, counters, card, tmp, vocab,
                                      ckpts)
+        beam_counts, beam_int8_counts, profile_beam = beam_phase(
+            torch, np, counters, card, ckpts["full"])
+        demo_counts = demo_phase(torch, counters, card, tmp, ckpts["full"],
+                                 os.path.join(tmp, "vocab.txt"))
+        torch.cuda.empty_cache()
+        selftrain_phase(torch, np, card, tmp, ckpts["full"], vocab)
     profile_last()
+    profile_beam()
 
     kernels = []
     for name, replaces, rows in entries:
@@ -2212,7 +2634,10 @@ def main():
                               "eval_disc": disc_counts[name],
                               "train": train_counts[name],
                               "train_disc": disc_train_counts[name],
-                              "attack_fgsm": attack_counts[name]},
+                              "attack_fgsm": attack_counts[name],
+                              "beam": beam_counts[name],
+                              "beam_int8": beam_int8_counts[name],
+                              "inference": demo_counts[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

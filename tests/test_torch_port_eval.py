@@ -22,13 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from fixtures import make_cli_env
+from fixtures import make_cli_env, make_visdial_json
 from gstx.cli import evaluate_disc as jdisc_cli
 from gstx.cli import evaluate_gen as jgen_cli
 from gstx.cli.common import build_model as j_build_model
 from gstx.cli.common import init_params
 from gstx.cli.common import load_params as jrank_disc_load
 from gstx.core.checkpoint import to_torch_state_dict
+from gstx.data.feature_store import make_synthetic_store
 from gstx.data import tokenizer as jtok
 from gstx.data import visdial as jvisdial
 from gstx.eval import metrics as jmetrics
@@ -56,6 +57,11 @@ KINDS = {"gen": (jgen_cli, tgen_cli, jrank_gen, trank_gen),
          "disc": (jdisc_cli, tdisc_cli, jrank_disc, trank_disc)}
 MODES = ["vd_eval_val", "vd_eval_test"]
 CASES = [(k, m) for k in KINDS for m in MODES]
+# the CLI runs: every (kind, mode) on VisDial v1.0, and val on v0.9
+# (batches of 25, no NDCG) over V09_DIALOGS dialogs made in the test
+CLI_CASES = [(k, m, "1.0") for k, m in CASES] + \
+    [(k, "vd_eval_val", "0.9") for k in KINDS]
+V09_DIALOGS = 26  # a full batch of 25 and one of 1
 
 
 # ---------------------------------------------------------------------- #
@@ -141,17 +147,32 @@ def env(tmp_path_factory):
     torch.save({"model_state_dict": {
         "module.bert_pretrained." + k[len(pre):]: torch.from_numpy(
             np.array(v)) for k, v in sd.items() if k.startswith(pre)}}, enc)
-    return args, cfg, params, {"gen": full, "disc": enc}
+    # VisDial v0.9: the same JSON layout, no dense annotations, no test
+    # split; its own val set and store, and 8 options a round, so that a
+    # batch of 25 (2,000 sequences) splits into the evaluators' chunks of
+    # 500 and 200
+    v09 = {"vd_version": "0.9", "num_options": 8,
+           "visdial_processed_train_09": cfg.visdial_processed_train,
+           "visdial_processed_val_09": os.path.join(tmp, "val_09.json"),
+           "visdial_image_feats": os.path.join(tmp, "feats_09.store")}
+    make_visdial_json(v09["visdial_processed_val_09"], V09_DIALOGS, seed=9)
+    make_synthetic_store(v09["visdial_image_feats"],
+                         [1000 + i for i in range(V09_DIALOGS)],
+                         num_boxes=12, feat_dim=16, num_classes=11)
+    return args, cfg, params, {"gen": full, "disc": enc}, v09
 
 
 def _port_config(jcfg):
     return tcfg.GSTConfig(**dataclasses.asdict(jcfg))
 
 
-def _datasets(env, kind, mode, attack=""):
+def _datasets(env, kind, mode, attack="", version="1.0"):
     """The JAX and the port's dataset; with ``attack``, under that attack
-    with ``attack_mode`` set, as the attack evaluator sets it."""
-    _, jcfg, _, _ = env
+    with ``attack_mode`` set, as the attack evaluator sets it; on VisDial
+    ``version``."""
+    _, jcfg, _, _, v09 = env
+    if version == "0.9":
+        jcfg = jcfg.replace(**v09)
     if mode == "vd_eval_test":
         jcfg = jcfg.replace(num_options=100)
     if attack:
@@ -207,7 +228,7 @@ def test_vd_train_names_item_5(env, kind):
     5, serve items now: the generative one since generative training, the
     discriminative one since discriminative training (their items against
     JAX's: tests/test_torch_port_train.py, tests/test_torch_port_disc.py)."""
-    _, jcfg, _, _ = env
+    _, jcfg, _, _, _ = env
     tc = _port_config(jcfg)
     tok = ttok.BertTokenizer(vocab_path=tc.vocab_path)
     if kind == "gen":
@@ -276,10 +297,12 @@ def test_chunk_inputs_equal_jax_flattened_arrays(env, kind, mode):
 # ---------------------------------------------------------------------- #
 
 
-def _argv(env, kind, mode, out):
-    args, _, _, ckpts = env
+def _argv(env, kind, mode, out, version="1.0"):
+    args, _, _, ckpts, v09 = env
     argv = args + ["-mode", mode, "-start_path", ckpts[kind],
                    "-save_path", out, "-data_parallel", "1"]
+    if version == "0.9":
+        argv += [a for k, v in v09.items() for a in (f"-{k}", str(v))]
     if kind == "disc":
         argv += ["-model", "enc_only_a"]
     if mode == "vd_eval_test":
@@ -309,26 +332,29 @@ FACTORY = {"gen": "make_chunk_scorer", "disc": "make_nsp_scorer"}
 
 @pytest.fixture(scope="module")
 def runs(env, tmp_path_factory):
-    """Each evaluator and mode through the JAX CLI and the port's CLI
-    (the port's with GSTX_PLATFORM=cpu and no ``device``): results and
-    per-sequence scores."""
+    """Each evaluator, mode and VisDial version through the JAX CLI and
+    the port's CLI (the port's with GSTX_PLATFORM=cpu and no ``device``):
+    results, per-sequence scores, the save path and (the port's) the
+    batch loop's counts."""
     out = {}
     mp = pytest.MonkeyPatch()
     try:
         mp.setenv("GSTX_PLATFORM", "cpu")
-        for kind, mode in CASES:
+        for kind, mode, version in CLI_CASES:
             jcli, tcli, jrank, trank = KINDS[kind]
             res = {}
             for pkg, cli, rank in (("jax", jcli, jrank),
                                    ("port", tcli, trank)):
-                rec = []
+                rec, stats = [], {}
+                kw = {"stats_out": stats} if pkg == "port" else {}
                 with pytest.MonkeyPatch.context() as m:
                     _recording(m, rank, FACTORY[kind], rec)
                     save = str(tmp_path_factory.mktemp(f"{pkg}_{kind}"))
-                    result = cli.main(_argv(env, kind, mode, save))
+                    result = cli.main(_argv(env, kind, mode, save, version),
+                                      **kw)
                     kffn.enable(True)  # the module default, for later tests
-                res[pkg] = (result, np.concatenate(rec), save)
-            out[kind, mode] = res
+                res[pkg] = (result, np.concatenate(rec), save, stats)
+            out[kind, mode, version] = res
     finally:
         mp.undo()
     return out
@@ -365,16 +391,22 @@ def compare_ranks(got, want, seqs=None):
     return near
 
 
-@pytest.mark.parametrize("kind,mode", CASES)
-def test_cli_matches_jax_cli(env, runs, kind, mode):
+@pytest.mark.parametrize("kind,mode,version", CLI_CASES,
+                         ids=[f"{k}-{m}" + ("-v0.9" if v == "0.9" else "")
+                              for k, m, v in CLI_CASES])
+def test_cli_matches_jax_cli(env, runs, kind, mode, version):
     """Scores within SCORE_TOL; metrics (val) or predictions.txt (test)
-    equal, up to near-ties."""
-    (jres, jscores, jsave), (tres, tscores, tsave) = \
-        runs[kind, mode]["jax"], runs[kind, mode]["port"]
+    equal, up to near-ties.  VisDial v0.9: batches of 25 images and no
+    NDCG."""
+    (jres, jscores, jsave, _), (tres, tscores, tsave, stats) = \
+        runs[kind, mode, version]["jax"], runs[kind, mode, version]["port"]
     assert tscores.dtype == np.float32 and tscores.shape == jscores.shape
     np.testing.assert_allclose(tscores, jscores, rtol=SCORE_TOL,
                                atol=SCORE_TOL)
-    _, ds = _datasets(env, kind, mode)
+    _, ds = _datasets(env, kind, mode, version=version)
+    per_batch = 20 if version == "1.0" else 25
+    assert stats["images"] == len(ds) and \
+        stats["batches"] == -(-len(ds) // per_batch)
     batch = collate([ds.__getitem__(i, seed=0) for i in range(len(ds))])
     seqs = _option_groups(batch, kind)
     b, rounds = seqs.shape[:2]
@@ -383,8 +415,9 @@ def test_cli_matches_jax_cli(env, runs, kind, mode):
     near = int(tied.sum()) // 2
     print(f"{kind} {mode}: {near} near-tied option pairs")
     if mode == "vd_eval_val":
-        assert tres.keys() == jres.keys() >= {"r@1", "r@5", "r@10", "mean",
-                                              "mrr", "ndcg"}
+        sparse = {"r@1", "r@5", "r@10", "mean", "mrr"}
+        assert tres.keys() == jres.keys() == (
+            sparse | {"ndcg"} if version == "1.0" else sparse)
         if near == 0:
             assert tres == jres
         # each near-tied pair moves one rank by at most one place.  The
@@ -394,10 +427,12 @@ def test_cli_matches_jax_cli(env, runs, kind, mode):
         # moves only by pairs that hold a relevant option.
         gt = batch["gt_option_inds"].reshape(-1)
         near_gt = int(tied[np.arange(b * rounds), gt].sum())
-        dense = tied[np.arange(b) * rounds + batch["round_id"][:, 0] - 1]
-        rel = batch["gt_relevance"] > 0
-        near_rel = int((dense & (rel[:, :, None] | rel[:, None, :])).sum()
-                       ) // 2
+        near_rel = 0
+        if version == "1.0":
+            dense = tied[np.arange(b) * rounds + batch["round_id"][:, 0] - 1]
+            rel = batch["gt_relevance"] > 0
+            near_rel = int((dense & (rel[:, :, None] | rel[:, None, :])
+                            ).sum()) // 2
         print(f"{kind} {mode}: {near_gt} hold the gt option, {near_rel} "
               "a relevant option of the dense round")
         for k in tres:
@@ -419,7 +454,7 @@ def test_cli_matches_jax_cli(env, runs, kind, mode):
 
 
 def _port_model(env, kind, dtype=torch.float32):
-    args, _, _, ckpts = env
+    args, _, _, ckpts, _ = env
     from gstx_torch.cli.common import parse_config
 
     cfg = parse_config(args)
@@ -445,7 +480,7 @@ def test_evaluator_scores_match_jax_at_both_chunk_sizes(env, runs,
     results equal to the port CLI's."""
     _, _, _, trank = KINDS[kind]
     evaluate = trank.evaluate_gen if kind == "gen" else trank.evaluate_disc
-    jscores = runs[kind, mode]["jax"][1]
+    jscores = runs[kind, mode, "1.0"]["jax"][1]
     model = _port_model(env, kind)
     results, scores = [], []
     for cs in (500, 100):
@@ -463,7 +498,7 @@ def test_evaluator_scores_match_jax_at_both_chunk_sizes(env, runs,
     np.testing.assert_allclose(scores[1], scores[0], rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(scores[0], jscores, rtol=SCORE_TOL,
                                atol=SCORE_TOL)
-    assert results[0] == results[1] == runs[kind, mode]["port"][0]
+    assert results[0] == results[1] == runs[kind, mode, "1.0"]["port"][0]
 
 
 @pytest.mark.parametrize("kind", ["gen", "disc"])
@@ -529,7 +564,7 @@ def test_enc_only_model_loads_the_bridge_strictly_and_refuses_full(env):
     encoder-only .ckpt.  A full .ckpt, once refused, now gives its encoder
     part, as JAX's load_params merges it into the encoder-only template:
     the same NSP scores as the JAX model loaded from the same file."""
-    args, jcfg, params, ckpts = env
+    args, jcfg, params, ckpts, _ = env
     from gstx_torch.cli.common import parse_config
 
     model = t_build_model(parse_config(args), device="cpu",

@@ -52,6 +52,12 @@ def test_scan_covers_the_package():
             "gstx_torch/models/heads.py", "gstx_torch/models/mlm.py",
             "gstx_torch/eval/attacks.py", "gstx_torch/eval/attack_eval.py",
             "gstx_torch/cli/evaluate_gen_attack.py"} <= names
+    assert {"gstx_torch/cli/selftrain.py", "gstx_torch/decode/beam.py",
+            "gstx_torch/cli/inference.py",
+            "gstx_torch/preprocessing/preprocess_visdial.py",
+            "gstx_torch/preprocessing/convert_to_store.py",
+            "gstx_torch/preprocessing/comp_cos_sim_mat.py",
+            "gstx_torch/preprocessing/clip_filtering.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
