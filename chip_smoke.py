@@ -25,7 +25,9 @@
            128 rows).  Gradient rows for fused_ffn and
            fused_dense_ln at phase 8's training shapes (18,432 text rows
            x 768, F 3,072; BiOutput-t 18,432 x 1,024 -> 768; 2,664 visual
-           rows x 1,024) and phase 10's FGSM chunk (25,600 / 3,700 rows):
+           rows x 1,024), a rank's share of phase 14's two-rank step at
+           batch 72 (9,216 / 1,332 rows) and phase 10's FGSM chunk (25,600
+           / 3,700 rows):
            the autograd Function (kernel forward, f32
            recompute backward) against autograd through the plain version,
            every gradient within the bf16 tolerance, with the backward's
@@ -183,6 +185,31 @@
            dialogs: every stage's exit code, the dialog file, both
            final.ckpt files and the finetune's moved weights; each stage's
            wall time and checkpoint size.
+  phase 14 the port's multi-process paths (gstx_torch.core.mesh) at full
+           width on the one card, every rank a process of this script
+           (``--rank``) with the launcher's environment: (a) train_gen
+           -distributed in a group of one over nccl, phase 8 (b)'s teacher
+           with -use_pallas, 3 steps: 30 / 30 launches a step, the first
+           loss within TRAIN_LOSS_TOL of the run without -distributed;
+           (b) two ranks over gloo (NCCL takes one rank a device), the
+           generative and the discriminative trainers' step on one fixed
+           global batch of 72 dialogs (36 a rank), dropout-free (the
+           fusion's and the heads' fixed dropout off too), lr DP_LR,
+           against the single-process step rank 0 takes first: in bf16
+           with the kernels (30 / 30 launches a rank) the loss within
+           TRAIN_LOSS_TOL and gradient norms within TRAIN_GRAD_NORM_TOL,
+           warm steps timed; in f32 every updated parameter within the
+           bf16 tolerance, and a control that skips the gradient
+           all-reduce must leave parameters beyond it; (c) the
+           generation CLI on two ranks over phase 6's inputs: the .procN
+           shards reassemble phase 6's images once each, summed img/s
+           and each rank's launches; then f32 greedy on DP_GREEDY_IMAGES
+           images, the ranks' dialogs equal to one process's; (d)
+           evaluate_gen on two ranks on phase 7's val set: rank 0's
+           gathered scores within EVAL_SCORE_TOL["gen"] (centred, per
+           round) of phase 7's, the log written once, scored sequences/s;
+           (e) two ranks on the one card under nccl must raise.  Each
+           part's wall time.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
 after a profiled round ran 26-50% slower.  Phases 6 to 13 write their
@@ -523,8 +550,9 @@ def kernel_phase(torch, kffn, kattn, kdecode):
 
 
 # (kernel, label, dims): the training step's shapes at batch 72 (phases 8
-# and 9): 18,432 text rows (72 x 256) and 2,664 visual rows (72 x 37); the
-# FGSM gradient pass's chunk (phase 10): 25,600 and 3,700
+# and 9): 18,432 text rows (72 x 256) and 2,664 visual rows (72 x 37), and
+# a rank's half of them (phase 14); the FGSM gradient pass's chunk (phase
+# 10): 25,600 and 3,700
 GRAD_SHAPES = [("fused_ffn", "train text 18432x768x3072", (18432, 768, 3072)),
                ("fused_ffn", "train visual 2664x1024x1024",
                 (2664, 1024, 1024)),
@@ -534,6 +562,18 @@ GRAD_SHAPES = [("fused_ffn", "train text 18432x768x3072", (18432, 768, 3072)),
                 (18432, 1024, 768)),
                ("fused_dense_ln", "train visual 2664x1024->1024",
                 (2664, 1024, 1024)),
+               # a rank's share of phase 14 (b)'s two-rank step at batch
+               # 72: 36 rows of 256 text and 37 visual positions
+               ("fused_ffn", "dp2 rank text 9216x768x3072",
+                (9216, 768, 3072)),
+               ("fused_ffn", "dp2 rank visual 1332x1024x1024",
+                (1332, 1024, 1024)),
+               ("fused_dense_ln", "dp2 rank text 9216x768->768",
+                (9216, 768, 768)),
+               ("fused_dense_ln", "dp2 rank BiOutput-t 9216x1024->768",
+                (9216, 1024, 768)),
+               ("fused_dense_ln", "dp2 rank visual 1332x1024->1024",
+                (1332, 1024, 1024)),
                ("fused_ffn", "attack text 25600x768x3072",
                 (25600, 768, 3072)),
                ("fused_ffn", "attack visual 3700x1024x1024",
@@ -1210,7 +1250,8 @@ def cli_phase(torch, np, counters, card, tmp):
     sampling (T 0.7, top-k 7, n-gram 4 for questions, fused sampler),
     -use_pallas, -host_prefetch and -pipeline 2; inputs in ``tmp``.
     Returns its launch counts (fused_ffn and fused_dense_ln 600 a batch,
-    the rest 0), the vocab and the checkpoints' paths."""
+    the rest 0), the vocab, the checkpoints' paths, its flags less
+    -save_path and its records."""
     import math
 
     from gstx_torch import native
@@ -1279,7 +1320,8 @@ def cli_phase(torch, np, counters, card, tmp):
         f"q {q['question']!r}, a {q['answer']!r}, ppl {q['answer_ppl']:.2f}")
     ckpts = {"full": os.path.join(tmp, "model.ckpt"),
              "encoder": os.path.join(tmp, "encoder.ckpt")}
-    return counts, vocab, ckpts
+    at = argv.index("-save_path")
+    return counts, vocab, ckpts, argv[:at] + argv[at + 2:], records
 
 
 EVAL_IMAGES = 20      # one VisDial v1.0 eval batch (evaluate_gen.py:151)
@@ -1488,7 +1530,8 @@ def eval_phase(torch, np, counters, card, tmp, vocab, ckpts):
     in-process at full width, bf16, -use_pallas, on phase 6's vocab and
     checkpoints (the generative one carries phase 6's +3.0 EOS bias).
     Returns the launch counts of the generative and discriminative
-    vd_eval_val runs."""
+    vd_eval_val runs, the data flags, and the generative val run's scores
+    a batch."""
     from gstx_torch.cli import common, evaluate_disc, evaluate_gen
     from gstx_torch.data.tokenizer import BertTokenizer
     from gstx_torch.data.visdial import VisdialDiscDataset, VisdialGenDataset
@@ -1510,10 +1553,12 @@ def eval_phase(torch, np, counters, card, tmp, vocab, ckpts):
         return ["-save_path", os.path.join(tmp, name)]
     gen = data + ["-start_path", ckpts["full"], "-use_pallas"]
     n_val = EVAL_IMAGES * ROUNDS * EVAL_OPTIONS
-    metrics, gen_counts = eval_run(
-        torch, counters, card, "phase 7 gen val", evaluate_gen,
-        gen + ["-mode", "vd_eval_val"] + out("gen_val"), GEN_CHUNK,
-        EVAL_IMAGES, n_val, want(n_val // GEN_CHUNK))
+    scores = []
+    with recording_scores(rank_gen, scores):
+        metrics, gen_counts = eval_run(
+            torch, counters, card, "phase 7 gen val", evaluate_gen,
+            gen + ["-mode", "vd_eval_val"] + out("gen_val"), GEN_CHUNK,
+            EVAL_IMAGES, n_val, want(n_val // GEN_CHUNK))
     check_metrics("phase 7 gen val", metrics, EVAL_OPTIONS)
     if not os.path.exists(os.path.join(tmp, "gen_val",
                                        "performance_log.txt")):
@@ -1565,7 +1610,7 @@ def eval_phase(torch, np, counters, card, tmp, vocab, ckpts):
                   rank_disc.flatten_disc, rank_disc.make_nsp_scorer,
                   ("image_feat", "image_loc"), DISC_CHUNK,
                   EVAL_SCORE_TOL["disc"])
-    return gen_counts, disc_counts
+    return gen_counts, disc_counts, data, scores
 
 
 TRAIN_BATCH = 72      # the reference's batch (options.py)
@@ -1878,7 +1923,7 @@ def train_phase(torch, np, counters, card, tmp, vocab):
                             256, 37, TRAIN_UTT)
     return training_phase(torch, counters, card, tmp, 8, train_gen, flops,
                           common + student, 6, 3, "cc12m_train_step.ckpt",
-                          2, common + teacher)
+                          2, common + teacher), (common, teacher)
 
 
 DISC_DIALOGS = 144    # 2 steps an epoch at batch 72
@@ -1961,7 +2006,7 @@ def disc_phase(torch, np, counters, card, tmp, vocab):
     flops = 3 * disc_flops(EncoderConfig(), TRAIN_BATCH, 256, 37)
     return training_phase(torch, counters, card, tmp, 9, train_disc, flops,
                           common, 4, 4, "vd_train_disc_step.ckpt", 1,
-                          common + dense)
+                          common + dense), (common, dense)
 
 
 # phase 10: dialogs of each attack run, and the FGSM input gradient's
@@ -2554,6 +2599,636 @@ def selftrain_phase(torch, np, card, tmp, ckpt, vocab):
     shutil.rmtree(root)
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: data parallelism across processes
+# ---------------------------------------------------------------------- #
+
+
+DP_RANKS = 2
+# (b)'s learning rate (every group, the schedule's floor too): the first
+# AdamW step moves an entry by about the lr whatever its gradient, so at the
+# trainers' 1e-5 no fault of the gradient all-reduce could reach the bf16
+# parameter tolerance; at 0.1 an entry whose gradient's sign a missing
+# all-reduce flips moves 0.2 away, past it
+DP_LR = "0.1"
+DP_GREEDY_IMAGES = 8   # (c)'s f32 greedy comparison
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(tag, spec, tmp, world=DP_RANKS, backend=None,
+                 timeout=900):
+    """``world`` ranks of this script (``--rank``) on ``spec``, launched as
+    a user launches the port: ``python -m torch.distributed.run
+    --nproc_per_node world``, whose agent serves the rendezvous store, with
+    GSTX_DIST_BACKEND=``backend`` when given.  Each rank writes its own log
+    (:func:`rank_main`).  A rank that fails (or a launch that outlives
+    ``timeout``) fails the phase: the launcher and every rank are stopped
+    and every log's tail printed.  Returns (each rank's result, wall s)."""
+    root = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    spec = dict(spec, out=os.path.join(root, "result"))
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    env.pop("GSTX_DIST_BACKEND", None)
+    if backend:
+        env["GSTX_DIST_BACKEND"] = backend
+    launcher_log = os.path.join(root, "launcher.log")
+    t0 = time.perf_counter()
+    with open(launcher_log, "w") as out:
+        # a session of its own, so that a timeout stops the ranks too
+        p = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(world), "--master_addr", "127.0.0.1",
+             "--master_port", str(free_port()), os.path.abspath(__file__),
+             "--rank", spec_path], env=env, stdout=out,
+            stderr=subprocess.STDOUT, cwd=HERE, start_new_session=True)
+        try:
+            code = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            code = "timeout"
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+            p.wait()
+    wall = time.perf_counter() - t0
+    if code != 0:
+        for path in [launcher_log] + [os.path.join(root, f"rank{r}.log")
+                                      for r in range(world)]:
+            text = open(path).read() if os.path.exists(path) else ""
+            log(f"[{tag}] {os.path.basename(path)}'s tail:\n"
+                f"{text[-3000:]}")
+        raise AssertionError(f"{tag}: the ranks' launch ended {code}")
+    results = []
+    for rank in range(world):
+        with open(f"{spec['out']}.rank{rank}.json") as f:
+            results.append(json.load(f))
+    shutil.rmtree(root)
+    return results, wall
+
+
+@contextlib.contextmanager
+def recording_scores(rank_gen, into):
+    """Every batch's scores that the evaluators gather (rank 0's, or a
+    single process's) appended to ``into`` as host arrays."""
+    real = rank_gen.gather_scores
+
+    def recording(*a, **kw):
+        got = real(*a, **kw)
+        if got is not None:
+            into.append(got.numpy().copy())
+        return got
+    rank_gen.gather_scores = recording
+    try:
+        yield into
+    finally:
+        rank_gen.gather_scores = real
+
+
+def dp_one_step(torch, counters, config, dev, kind, batch, dp,
+                timed=False, keep=False):
+    """One step of the ``kind`` trainer's step function (gstx_torch.train)
+    from ``-start_path`` on the numpy ``batch``, across ``dp`` when given:
+    its loss, per-tensor gradient norms, launch counts and wall time, the
+    updated parameters (device copies) when ``keep``, and with ``timed`` a
+    second (warm) step's wall time."""
+    from gstx_torch.train import train_disc, train_gen
+
+    remat = config.remat_policy if config.remat else None
+    if kind == "gen":
+        model, opt = train_gen.init_model_and_state(config, 100, dev)
+        train_gen.load_start_checkpoint(config, model, opt)
+        step = train_gen.make_train_step(model, opt, config.batch_size,
+                                         config.batch_multiply, remat, dp)
+    else:
+        model, opt = train_gen.init_model_and_state(
+            config, 100, dev, use_decoder=False,
+            warmup_steps=train_disc.DISC_WARMUP_STEPS)
+        train_disc.load_start_checkpoint(config, model, opt)
+        step = train_disc.make_disc_train_step(model, opt, config, remat,
+                                               dp)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    out = step(batch, train_gen.iteration_generator(config.seed, 0))
+    torch.cuda.synchronize()
+    res = dict(first_s=time.perf_counter() - t0, counts=counters.read(),
+               loss=float(out if kind == "gen" else out["loss"]),
+               norms={n: float(p.grad.float().norm())
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    if keep:
+        res["params"] = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+    if timed:
+        spent = dp.spent if dp is not None else {}
+        spent.clear()
+        t0 = time.perf_counter()
+        step(batch, train_gen.iteration_generator(config.seed, 1))
+        torch.cuda.synchronize()
+        res["second_s"] = time.perf_counter() - t0
+        res["second_parts_s"] = dict(spent)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def param_check(got, want):
+    """(elements beyond ABS_TOL + REL_TOL * |want|, the worst
+    |got - want| / limit) over every parameter."""
+    over, worst = 0, 0.0
+    for name, w in want.items():
+        d = (got[name] - w).abs()
+        lim = ABS_TOL + REL_TOL * w.abs()
+        over += int((d > lim).sum())
+        worst = max(worst, float((d / lim).max()))
+    return over, worst
+
+
+def rank_step(torch, counters, spec):
+    """Phase 14 (b) on one rank.  For each run, on this rank's stripe of
+    one fixed global batch, across the group: the bf16 step with the
+    kernels (loss, gradient norms, launches, a warm step's time); the f32
+    step, whose updated parameters rank 0 holds elementwise against the
+    single-process step's; and the f32 control that skips the gradient
+    all-reduce.  Rank 0 first takes the single-process steps on the whole
+    batch.  The parameter check runs in f32 because AdamW's first update,
+    m / (sqrt(v) + eps), is ill-conditioned where |g| is near eps /
+    sqrt(1 - b2): there bf16's rounding of the gradient alone moves an
+    entry past the limit (1e-5 of the entries in a CPU rehearsal at width
+    128), which f32 rounding does not."""
+    from gstx_torch.cli import common
+    from gstx_torch.core import mesh
+    from gstx_torch.data.loader import collate
+    from gstx_torch.data.tokenizer import BertTokenizer
+    from gstx_torch.data.visdial import VisdialDiscDataset, VisdialGenDataset
+    from gstx_torch.models import encdec, heads
+
+    # dropout-free: the model JSONs' rates are 0, and the fusion's and the
+    # heads' fixed 0.1 off (their masks follow the rows' layout, which a
+    # split batch changes)
+    encdec.FUSION_DROPOUT = heads.POOLED_DROPOUT = 0.0
+
+    class Timed(mesh.DataParallel):
+        """The data axis, its batch gathering and gradient all-reduce
+        timed (wall, the device synchronised around each) into
+        ``spent``."""
+
+        spent = {}
+
+        def _timed(self, what, fn, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            self.spent[what] = self.spent.get(what, 0.0) + \
+                time.perf_counter() - t0
+            return out
+
+        def gather_batch(self, batch):
+            return self._timed("gather", super().gather_batch, batch)
+
+        def all_reduce_grads_(self, params):
+            return self._timed("all_reduce", super().all_reduce_grads_,
+                               params)
+
+    class NoReduce(mesh.DataParallel):
+        """The control: the gradients stay each rank's own."""
+
+        spent = {}
+
+        def all_reduce_grads_(self, params):
+            pass
+
+    out = {}
+    for run in spec["runs"]:
+        kind = run["kind"]
+        bf16 = common.parse_config(run["argv"])
+        f32 = common.parse_config(run["argv"] + ["-dtype", "float32"])
+        dev = common.default_device("cuda")
+        common.apply_runtime_flags(bf16, dev)
+        axis = mesh.training_data_parallel(bf16.data_parallel, dev)
+        dp = Timed(axis.group, axis.rank, axis.size, axis.device)
+        ctrl = NoReduce(dp.group, dp.rank, dp.size, dp.device)
+        cls = VisdialGenDataset if kind == "gen" else VisdialDiscDataset
+        ds = cls(bf16, BertTokenizer(vocab_path=bf16.vocab_path),
+                 mode="vd_train")
+        n = run["images"] // dp.size
+
+        def batch(items):
+            return collate([ds.__getitem__(i, seed=i) for i in items])
+        res = {"backend": dp.backend, "device": str(dp.device)}
+        if dp.rank == 0:
+            whole = batch(range(run["images"]))
+            ref16 = dp_one_step(torch, counters, bf16, dev, kind, whole,
+                                None, timed=True)
+            ref32 = dp_one_step(torch, counters, f32, dev, kind, whole,
+                                None, keep=True)
+            del whole
+            res.update(ref_loss=ref16["loss"], ref_first_s=ref16["first_s"],
+                       ref_second_s=ref16["second_s"],
+                       ref_counts=ref16["counts"], ref32_loss=ref32["loss"])
+        mesh.barrier()
+        mine = batch(range(dp.rank * n, (dp.rank + 1) * n))
+        got = dp_one_step(torch, counters, bf16, dev, kind, mine, dp,
+                          timed=True)
+        res.update(dp_loss=got["loss"], dp_counts=got["counts"],
+                   dp_first_s=got["first_s"], dp_second_s=got["second_s"],
+                   dp_second_parts_s=got["second_parts_s"])
+        if dp.rank == 0:
+            res["dp_norm_err"], res["dp_norm_worst"] = grad_norm_err(
+                got["norms"], ref16["norms"])
+        for name, axis in (("dp32", dp), ("control", ctrl)):
+            got = dp_one_step(torch, counters, f32, dev, kind, mine, axis,
+                              keep=dp.rank == 0)
+            res[f"{name}_loss"] = got["loss"]
+            if dp.rank == 0:
+                err, worst_t = grad_norm_err(got["norms"], ref32["norms"])
+                over, worst = param_check(got["params"], ref32["params"])
+                res.update({f"{name}_norm_err": err,
+                            f"{name}_norm_worst": worst_t,
+                            f"{name}_params_over": over,
+                            f"{name}_params_worst": worst,
+                            f"{name}_params_differ": sum(
+                                int((ref32["params"][k] != v).sum())
+                                for k, v in got["params"].items()),
+                            "params": sum(p.numel() for p in
+                                          ref32["params"].values())})
+            del got
+        if dp.rank == 0:
+            del ref16, ref32
+        torch.cuda.empty_cache()
+        out[kind] = res
+    return out
+
+
+def rank_cli(torch, counters, spec):
+    """Phase 14 (a), (c), (d) on one rank: ``spec["cli"]``'s main on
+    ``spec["argv"]`` with every launch counter set to 0 just before and
+    read just after; the trainer's losses and step times, the run's
+    stats, and the scores the evaluator gathers (rank 0)."""
+    import importlib
+
+    from gstx_torch.core import mesh
+    from gstx_torch.eval import rank_gen
+
+    cli = importlib.import_module(spec["cli"])
+    stats, scores = {}, []
+    kwargs = dict(device="cuda", stats_out=stats, **spec.get("kwargs", {}))
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    with recording_scores(rank_gen, scores):
+        result = cli.main(spec["argv"], **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(counts=counters.read(), wall=wall,
+               device=str(mesh.rank_device("cuda")),
+               stats={k: v for k, v in stats.items()
+                      if isinstance(v, (int, float, dict, list))
+                      and k not in ("grad_norms", "saves")})
+    if isinstance(result, dict):
+        out["metrics"] = result
+    elif isinstance(result, list):
+        out["records"] = len(result)
+    if scores:
+        out["scores"] = [float(x) for a in scores for x in a]
+    return out
+
+
+def rank_pair(torch, counters, spec):
+    """Phase 14's refusal check on one rank: under nccl, two ranks on the
+    one card must raise in init_distributed, not fall back to gloo."""
+    from gstx_torch.core import mesh
+
+    try:
+        backend = mesh.init_distributed(torch.device("cuda"))
+    except RuntimeError as e:
+        return {"raised": str(e)}
+    return {"raised": None, "backend": backend}
+
+
+RANK_TASKS = {"step": rank_step, "cli": rank_cli, "pair": rank_pair}
+
+
+def rank_main(spec_path):
+    """A rank of phase 14 (``python3 chip_smoke.py --rank spec.json``): runs
+    ``spec["task"]`` and writes its JSON result to ``spec["out"]``.rankN.
+    json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import build
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.kernels import ffn as kffn
+
+    # this rank's output into its own log, beside the spec
+    fd = os.open(os.path.join(os.path.dirname(spec_path),
+                              f"rank{os.environ['RANK']}.log"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    build.library()  # the parent's build, loaded
+    result = RANK_TASKS[spec["task"]](torch, Counters(kffn, kattn, kdecode),
+                                      spec)
+    if dist.is_initialized():
+        result.setdefault("backend", dist.get_backend())
+        dist.destroy_process_group()
+    with open(f"{spec['out']}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def dp_nccl_part(torch, counters, card, tmp, train_flags):
+    """Phase 14 (a): train_gen -distributed in a group of one over nccl
+    against the same run without -distributed.  Returns its launch
+    counts."""
+    from gstx_torch.cli import train_gen
+    from gstx_torch.kernels import ffn as kffn
+
+    common, teacher = train_flags
+    each = per_forward()
+    argv = common + teacher + ["-use_pallas"]
+    out_ref, out_a = (os.path.join(tmp, f"dp_a_{k}") for k in ("one", "nccl"))
+    stats, _, _ = train_run(torch, counters, "phase 14a one process",
+                            train_gen, argv + ["-save_path", out_ref], 1,
+                            card)
+    kffn.enable(True)
+    (got,), wall = launch_ranks("phase 14a", {
+        "task": "cli", "cli": "gstx_torch.cli.train_gen",
+        "argv": argv + ["-distributed", "-save_path", out_a],
+        "kwargs": {"max_steps": 3}}, tmp, world=1)
+    shutil.rmtree(out_ref)
+    shutil.rmtree(out_a)
+    check_launches("phase 14a", got["counts"], dict(
+        {k: 0 for k in SOURCES}, fused_ffn=each * 3,
+        fused_dense_ln=each * 3))
+    loss, want = got["stats"]["losses"]["loss"][0], \
+        stats["losses"]["loss"][0]
+    err = abs(loss - want) / abs(want)
+    log(f"[phase 14a] train_gen -distributed, world size 1: backend "
+        f"{got['backend']}; 3 steps, launches {got['counts']} "
+        f"({each} / {each} a step); losses "
+        f"{[round(x, 5) for x in got['stats']['losses']['loss']]}; first "
+        f"step {loss:.6f} against {want:.6f} without -distributed "
+        f"(relative {err:.3g}, limit {TRAIN_LOSS_TOL}); step seconds "
+        f"{[round(x, 4) for x in got['stats']['step_seconds']]}; "
+        f"{wall:.2f} s wall with the process's start; on {card}")
+    if got["backend"] != "nccl" or err > TRAIN_LOSS_TOL:
+        raise AssertionError("phase 14a: not nccl, or the loss disagrees")
+    return got["counts"]
+
+
+def dp_step_part(card, tmp, train_flags, disc_flags, world=DP_RANKS,
+                 backend="gloo", tag="phase 14b"):
+    """Phase 14 (b): ``world`` ranks (each on cuda:rank % cards) over
+    ``backend`` (None: the device's, nccl), the generative and the
+    discriminative trainers' step on one fixed global batch of TRAIN_BATCH
+    dialogs (:func:`rank_step`), held against the single-process step
+    rank 0 takes, with the no-all-reduce control."""
+    common, teacher = train_flags
+    disc_common, dense = disc_flags
+    each = per_forward()
+    lr = ["-lr", DP_LR, "-image_lr", DP_LR, "-min_lr", DP_LR,
+          "-distributed"]
+    runs = [{"kind": "gen", "images": TRAIN_BATCH,
+             "argv": common + teacher + ["-use_pallas"] + lr},
+            {"kind": "disc", "images": TRAIN_BATCH,
+             "argv": disc_common + dense + ["-use_pallas"] + lr}]
+    ranks, wall = launch_ranks(tag, {"task": "step", "runs": runs}, tmp,
+                               world=world, backend=backend)
+    for kind in ("gen", "disc"):
+        r0 = ranks[0][kind]
+        slowest = max(r[kind]["dp_second_s"] for r in ranks)
+        loss_err = abs(r0["dp_loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        log(f"[{tag} {kind}] {world} ranks over {r0['backend']} on "
+            f"{[r[kind]['device'] for r in ranks]}, {TRAIN_BATCH} images "
+            f"({TRAIN_BATCH // world} a rank), {TRAIN_BATCH} rows a step, "
+            f"lr {DP_LR}, bf16 with the kernels: loss {r0['dp_loss']:.6f} "
+            f"against one process's {r0['ref_loss']:.6f} (relative "
+            f"{loss_err:.3g}, limit {TRAIN_LOSS_TOL}); gradient norms: "
+            f"largest relative difference {r0['dp_norm_err']:.4g} at "
+            f"{r0['dp_norm_worst']} (limit {TRAIN_GRAD_NORM_TOL})")
+        log(f"[{tag} {kind}] f32: loss {r0['dp32_loss']:.7f} against "
+            f"{r0['ref32_loss']:.7f}; norms {r0['dp32_norm_err']:.3g}; "
+            f"parameters beyond {ABS_TOL} + {REL_TOL}|p|: "
+            f"{r0['dp32_params_over']} of {r0['params']} (worst "
+            f"{r0['dp32_params_worst']:.3g} of the limit; "
+            f"{r0['dp32_params_differ']} differ at all); control without "
+            f"the gradient all-reduce: loss {r0['control_loss']:.7f}, "
+            f"norms {r0['control_norm_err']:.4g}, parameters beyond "
+            f"{r0['control_params_over']} (worst "
+            f"{r0['control_params_worst']:.3g}; "
+            f"{r0['control_params_differ']} differ)")
+        log(f"[{tag} {kind}] launches a step: "
+            f"{[r[kind]['dp_counts'] for r in ranks]}, one process "
+            f"{r0['ref_counts']}; warm (second) bf16 step: one process "
+            f"{r0['ref_second_s'] * 1e3:.1f} ms "
+            f"({TRAIN_BATCH / r0['ref_second_s']:.1f} examples/s), the "
+            f"ranks {[round(r[kind]['dp_second_s'] * 1e3, 1) for r in ranks]}"
+            f" ms ({TRAIN_BATCH / slowest:.1f} examples/s), of which "
+            f"gathering the batch "
+            f"{r0['dp_second_parts_s']['gather'] * 1e3:.1f} ms and the "
+            f"gradient all-reduce "
+            f"{r0['dp_second_parts_s']['all_reduce'] * 1e3:.1f} ms on rank "
+            f"0; first steps {r0['ref_first_s'] * 1e3:.1f} / "
+            f"{r0['dp_first_s'] * 1e3:.1f} ms; on {card}")
+        for r in ranks:
+            check_launches(f"{tag} {kind}", r[kind]["dp_counts"], dict(
+                {k: 0 for k in SOURCES}, fused_ffn=each,
+                fused_dense_ln=each))
+        if not (loss_err <= TRAIN_LOSS_TOL
+                and r0["dp_norm_err"] <= TRAIN_GRAD_NORM_TOL
+                and r0["dp32_params_over"] == 0):
+            raise AssertionError(f"{tag} {kind}: the step across the ranks "
+                                 "disagrees with one process's")
+        if r0["control_params_over"] == 0:
+            raise AssertionError(f"{tag} {kind}: the control without the "
+                                 "all-reduce passes: the check is blind")
+    log(f"[{tag}] {wall:.2f} s wall")
+
+
+def dp_generate_part(torch, counters, card, tmp, gen_argv, records6):
+    """Phase 14 (c).  Returns each rank's launch counts."""
+    from gstx_torch.cli import generate
+    from gstx_torch.kernels import ffn as kffn
+    from gstx_torch.data.cc12m import load_dialog_json
+
+    each = per_forward() * 2 * ROUNDS
+    zero = {k: 0 for k in SOURCES}
+    out = os.path.join(tmp, "dp_gen")
+    ranks, wall = launch_ranks("phase 14c", {
+        "task": "cli", "cli": "gstx_torch.cli.generate",
+        "argv": gen_argv + ["-save_path", out, "-distributed"]}, tmp,
+        backend="gloo")
+    counts = [r["counts"] for r in ranks]
+    for rank, r in enumerate(ranks):
+        images = len(range(rank, CLI_IMAGES, DP_RANKS))
+        check_launches(f"phase 14c rank {rank}", r["counts"], dict(
+            zero, fused_ffn=each * -(-images // CLI_BATCH),
+            fused_dense_ln=each * -(-images // CLI_BATCH)))
+    shards = sorted(os.listdir(out))
+    ids = [d["image_id"] for d in
+           load_dialog_json(os.path.join(out, "dialogs.json"))]
+    want = sorted(r["image_id"] for r in records6)
+    rates = [r["stats"]["images"] / r["stats"]["loop_seconds"]
+             for r in ranks]
+    log(f"[phase 14c] generate -distributed, 2 ranks over gloo on the one "
+        f"card, phase 6's {CLI_IMAGES} images: shards {shards}; "
+        f"{len(ids)} dialogs reassembled ({len(set(ids))} distinct; phase "
+        f"6 wrote {len(want)}); rank img/s "
+        f"{[round(x, 2) for x in rates]}, summed {sum(rates):.2f}; "
+        f"{CLI_IMAGES} images over the slower rank's loop "
+        f"{CLI_IMAGES / max(r['stats']['loop_seconds'] for r in ranks):.2f}"
+        f" img/s; launches a rank {counts}; {wall:.2f} s wall with the "
+        f"processes' start; on {card}")
+    if shards != ["dialogs.proc0.json", "dialogs.proc1.json"] or \
+            sorted(ids) != want:
+        raise AssertionError("phase 14c: the shards do not reassemble "
+                             "phase 6's images once each")
+    shutil.rmtree(out)
+
+    # f32 greedy: two ranks against one process, image for image, on
+    # phase 6's first captions over a store of their images
+    from gstx_torch.data.feature_store import make_synthetic_store
+
+    caps = json.load(open(gen_argv[gen_argv.index("-cc12m_caption") + 1])
+                     )[:DP_GREEDY_IMAGES]
+    few, store = (os.path.join(tmp, n) for n in ("caps_few.json",
+                                                  "few.store"))
+    json.dump(caps, open(few, "w"))
+    make_synthetic_store(store, [c["image_id"] for c in caps], num_boxes=36,
+                         feat_dim=2048, num_classes=1601, seed=14)
+    ckpt = unbiased_ckpt(torch, gen_argv[gen_argv.index("-start_path_q")
+                                         + 1],
+                         os.path.join(tmp, "dp_greedy.ckpt"))
+    argv = gen_argv + ["-cc12m_caption", few, "-cc12m_image_feats", store,
+                       "-start_path_q", ckpt,
+                       "-start_path_a", ckpt, "-dtype", "float32",
+                       "-top_k", "1", "-batch_size", "4",
+                       "-num_dialog_rounds", "3", "-save_path",
+                       os.path.join(tmp, "dp_greedy")]
+    one = generate.main(argv + ["-save_name", "one.json"], device="cuda")
+    kffn.enable(True)
+    _, wall = launch_ranks("phase 14c f32", {
+        "task": "cli", "cli": "gstx_torch.cli.generate",
+        "argv": argv + ["-save_name", "two.json", "-distributed"]}, tmp,
+        backend="gloo")
+    two = load_dialog_json(os.path.join(tmp, "dp_greedy", "two.json"))
+    by_id = {d["image_id"]: d["dialog"] for d in two}
+    same = sum(by_id.get(d["image_id"]) is not None and all(
+        a["question"] == b["question"] and a["answer"] == b["answer"]
+        for a, b in zip(d["dialog"], by_id[d["image_id"]])) for d in one)
+    words = sum(len(u[k].split()) for d in one for u in d["dialog"]
+                for k in ("question", "answer"))
+    log(f"[phase 14c f32] greedy, {len(one)} images, 3 rounds: {same} of "
+        f"{len(one)} dialogs equal image for image ({len(two)} from the "
+        f"ranks; {words} words in the one process's); first: "
+        f"{one[0]['dialog'][0]}; {wall:.2f} s wall")
+    if same != len(one) or len(two) != len(one):
+        raise AssertionError("phase 14c: the ranks' greedy dialogs differ "
+                             "from one process's")
+    shutil.rmtree(os.path.join(tmp, "dp_greedy"))
+    for path in (ckpt, few, store):
+        os.remove(path)
+    return counts
+
+
+def dp_eval_part(torch, counters, card, tmp, eval_data, ckpts, scores7,
+                 world=DP_RANKS, backend="gloo", tag="phase 14d"):
+    """Phase 14 (d): ``evaluate_gen -distributed`` on ``world`` ranks (each
+    on cuda:rank % cards) over ``backend`` (None: the device's, nccl),
+    rank 0's gathered scores against the single-process ``scores7``.
+    Returns each rank's launch counts."""
+    import numpy as np
+
+    out = os.path.join(tmp, "dp_eval")
+    n_val = EVAL_IMAGES * ROUNDS * EVAL_OPTIONS
+    each = per_forward() * (n_val // GEN_CHUNK)
+    ranks, wall = launch_ranks(tag, {
+        "task": "cli", "cli": "gstx_torch.cli.evaluate_gen",
+        "kwargs": {"chunk_size": GEN_CHUNK},
+        "argv": eval_data + ["-start_path", ckpts["full"], "-use_pallas",
+                             "-mode", "vd_eval_val", "-save_path", out,
+                             "-distributed"]}, tmp, world=world,
+        backend=backend)
+    r0, rest = ranks[0], ranks[1:]
+    for rank, r in enumerate(ranks):
+        check_launches(f"{tag} rank {rank}", r["counts"], dict(
+            {k: 0 for k in SOURCES}, fused_ffn=each, fused_dense_ln=each))
+    got = torch.tensor(r0["scores"]).reshape(EVAL_IMAGES * ROUNDS,
+                                             EVAL_OPTIONS)
+    want = torch.from_numpy(np.concatenate(scores7)).reshape(got.shape)
+    err = max(centred_err(torch, g, w) for g, w in zip(got, want))
+    files = sorted(os.listdir(out))
+    loop = r0["stats"]["loop_seconds"]
+    log(f"[{tag}] evaluate_gen -distributed, {world} ranks over "
+        f"{r0['backend']} on {[r['device'] for r in ranks]}, phase 7's val "
+        f"set ({n_val} sequences, chunks of {GEN_CHUNK}, "
+        f"{-(-GEN_CHUNK // world)} rows a rank): rank 0's gathered scores "
+        f"against one process's, centred per round: largest relative error "
+        f"{err:.4g} (limit {EVAL_SCORE_TOL['gen']}); metrics "
+        f"{json.dumps(r0.get('metrics'))}; the other ranks returned "
+        f"{[r.get('metrics') for r in rest]}; files {files}; rank 0's batch "
+        f"loop {loop:.2f} s = {n_val / loop:.1f} scored sequences/s; "
+        f"launches {[r['counts'] for r in ranks]}; {wall:.2f} s wall; on "
+        f"{card}")
+    if err > EVAL_SCORE_TOL["gen"] or files != ["performance_log.txt"] or \
+            any("metrics" in r or "scores" in r for r in rest):
+        raise AssertionError(f"{tag}: the evaluation across the ranks "
+                             "differs from one process's")
+    check_metrics(tag, r0["metrics"], EVAL_OPTIONS)
+    shutil.rmtree(out)
+    return [r["counts"] for r in ranks]
+
+
+def dp_pair_check(tmp, card):
+    """Phase 14 (e): two ranks on the one card under nccl must raise."""
+    ranks, wall = launch_ranks("phase 14e", {"task": "pair"}, tmp)
+    log(f"[phase 14e] 2 ranks on the one card under nccl: "
+        f"{[r['raised'] for r in ranks]} ({wall:.2f} s)")
+    if not all(r["raised"] and "all run on" in r["raised"] for r in ranks):
+        raise AssertionError("phase 14e: nccl took two ranks on one card")
+
+
+def dp_phase(torch, counters, card, tmp, gen_argv, records6, eval_data,
+             scores7, ckpts, train_flags, disc_flags):
+    """Phase 14: the port's multi-process paths at full width on the one
+    card.  Returns the launch counts by path."""
+    torch.cuda.empty_cache()
+    log(f"[phase 14] card: {card}")
+    t0 = time.perf_counter()
+    counts = {"dp_train_nccl": dp_nccl_part(torch, counters, card, tmp,
+                                            train_flags)}
+    dp_step_part(card, tmp, train_flags, disc_flags)
+    t1 = time.perf_counter()
+    counts["dp_generate"] = dp_generate_part(torch, counters, card, tmp,
+                                             gen_argv, records6)
+    t2 = time.perf_counter()
+    counts["dp_eval"] = dp_eval_part(torch, counters, card, tmp, eval_data,
+                                     ckpts, scores7)
+    t3 = time.perf_counter()
+    dp_pair_check(tmp, card)
+    log(f"[phase 14] (a)+(b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, (d) "
+        f"{t3 - t2:.1f} s, (e) {time.perf_counter() - t3:.1f} s; on {card}")
+    return counts
+
+
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
@@ -2600,12 +3275,14 @@ def main():
     default_counts, int8_counts, profile_last = engine_phases(
         torch, np, counters, ROUNDS, TIMED_BATCHES, card)
     with tempfile.TemporaryDirectory() as tmp:
-        cli_counts, vocab, ckpts = cli_phase(torch, np, counters, card, tmp)
-        gen_counts, disc_counts = eval_phase(torch, np, counters, card, tmp,
-                                             vocab, ckpts)
-        train_counts = train_phase(torch, np, counters, card, tmp, vocab)
-        disc_train_counts = disc_phase(torch, np, counters, card, tmp,
-                                       vocab)
+        cli_counts, vocab, ckpts, gen_argv, records6 = cli_phase(
+            torch, np, counters, card, tmp)
+        gen_counts, disc_counts, eval_data, scores7 = eval_phase(
+            torch, np, counters, card, tmp, vocab, ckpts)
+        train_counts, train_flags = train_phase(torch, np, counters, card,
+                                                tmp, vocab)
+        disc_train_counts, disc_flags = disc_phase(torch, np, counters,
+                                                   card, tmp, vocab)
         attack_counts = attack_phase(torch, np, counters, card, tmp, vocab,
                                      ckpts)
         beam_counts, beam_int8_counts, profile_beam = beam_phase(
@@ -2614,6 +3291,9 @@ def main():
                                  os.path.join(tmp, "vocab.txt"))
         torch.cuda.empty_cache()
         selftrain_phase(torch, np, card, tmp, ckpts["full"], vocab)
+        dp_counts = dp_phase(torch, counters, card, tmp, gen_argv, records6,
+                             eval_data, scores7, ckpts, train_flags,
+                             disc_flags)
     profile_last()
     profile_beam()
 
@@ -2637,7 +3317,13 @@ def main():
                               "attack_fgsm": attack_counts[name],
                               "beam": beam_counts[name],
                               "beam_int8": beam_int8_counts[name],
-                              "inference": demo_counts[name]},
+                              "inference": demo_counts[name],
+                              "dp_train_nccl":
+                                  dp_counts["dp_train_nccl"][name],
+                              "dp_generate_ranks": [
+                                  c[name] for c in dp_counts["dp_generate"]],
+                              "dp_eval_ranks": [
+                                  c[name] for c in dp_counts["dp_eval"]]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -2652,5 +3338,66 @@ def main():
     return 0
 
 
+def dp_cards_main(worlds):
+    """``python3 chip_smoke.py --dp-cards N [M ...]``: phase 14 (b) and (d)
+    on N (then M ...) cards over nccl, a rank a card, after phase 1's build
+    and the inputs of phases 6-9; (d) holds rank 0's scores against one
+    process's run of the evaluator on the same inputs.  Needs as many
+    cards."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < max(worlds):
+        print(f"chip_smoke --dp-cards: {max(worlds)} cards needed",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from gstx_torch.cli import evaluate_gen
+    from gstx_torch.eval import rank_gen
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import build
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.kernels import ffn as kffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[dp cards] {torch.cuda.device_count()} x {card}")
+    build.library()
+    counters = Counters(kffn, kattn, kdecode)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, vocab, _ = cli_inputs(torch, np, tmp)
+        ckpts = {"full": os.path.join(tmp, "model.ckpt")}
+        common, _, teacher = train_inputs(np, tmp, vocab)
+        disc = disc_inputs(np, tmp, vocab)
+        eval_data = eval_inputs(np, tmp, vocab) + [
+            "-vocab_path", os.path.join(tmp, "vocab.txt")]
+        n_val = EVAL_IMAGES * ROUNDS * EVAL_OPTIONS
+        each = per_forward() * (n_val // GEN_CHUNK)
+        scores = []
+        with recording_scores(rank_gen, scores):
+            eval_run(torch, counters, card, "dp cards one process",
+                     evaluate_gen, eval_data + [
+                         "-start_path", ckpts["full"], "-use_pallas",
+                         "-mode", "vd_eval_val", "-save_path",
+                         os.path.join(tmp, "dp_eval_one")], GEN_CHUNK,
+                     EVAL_IMAGES, n_val, dict(
+                         {k: 0 for k in SOURCES}, fused_ffn=each,
+                         fused_dense_ln=each))
+        for world in worlds:
+            dp_step_part(card, tmp, (common, teacher), disc, world=world,
+                         backend=None, tag=f"dp {world} cards")
+            dp_eval_part(torch, counters, card, tmp, eval_data, ckpts,
+                         scores, world=world, backend=None,
+                         tag=f"dp {world} cards eval")
+    log(f"[dp cards] passed on {card}")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-cards":
+        sys.exit(dp_cards_main([int(n) for n in sys.argv[2:]]))
     sys.exit(main())

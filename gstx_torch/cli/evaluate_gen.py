@@ -12,8 +12,12 @@ EvalAI ranks file ``predictions.txt`` (``-mode vd_eval_test``):
 It runs on ``cuda`` unless ``main`` is given ``device="cpu"`` or the
 environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.  The
 model is built, loaded and (``-dtype bfloat16``) cast to bf16 once; the
-fused FFN / projection-LayerNorm kernels follow ``-use_pallas``.  One
-device: the multi-device flags are refused.
+fused FFN / projection-LayerNorm kernels follow ``-use_pallas``.  Under
+``-distributed`` across N ranks (``python -m torch.distributed.run
+--nproc_per_node N -m gstx_torch.cli.evaluate_gen ... -distributed``) the
+chunks' rows split over the first ``-data_parallel`` ranks (-1: all;
+:func:`gstx_torch.cli.common.make_generation_mesh`) and rank 0 writes the
+log and the predictions; with ``-data_parallel 1`` rank 0 evaluates alone.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import pprint
 
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
-                                   load_params, parse_config)
+                                   load_params, make_generation_mesh,
+                                   parse_config, primary_process_only)
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -48,8 +53,13 @@ def run_evaluation(config, dev, dataset_cls, evaluator, use_decoder,
     """Build the dataset and the model, run ``evaluator`` over the eval
     batches (20 images for v1.0, 25 for v0.9: ``evaluate_gen.py:151``) and
     write the log, and in test mode ``predictions.txt``.  Returns the
-    evaluator's result."""
-    apply_runtime_flags(config)
+    evaluator's result; in a multi-process run, on rank 0 only (None on
+    the others)."""
+    apply_runtime_flags(config, dev)
+    dp = make_generation_mesh(config, dev)
+    if dp is None and not primary_process_only():
+        return None
+    primary = dp is None or dp.rank == 0
     os.makedirs(config.save_path, exist_ok=True)
     eval_batch_size = 20 if config.vd_version == "1.0" else 25
 
@@ -68,16 +78,18 @@ def run_evaluation(config, dev, dataset_cls, evaluator, use_decoder,
                 return
             yield b
 
-    logger = Logger(os.path.join(config.save_path,
-                                 config.save_name or "performance_log.txt"))
+    logger = Logger(os.path.join(
+        config.save_path, config.save_name or "performance_log.txt")) \
+        if primary else None
     try:
         result = evaluator(model, batches(), mode=config.mode,
                            vd_version=config.vd_version,
                            chunk_size=chunk_size, logger=logger,
-                           stats_out=stats_out)
+                           stats_out=stats_out, dp=dp)
     finally:
-        logger.close()
-    if config.mode == "vd_eval_test":
+        if logger is not None:
+            logger.close()
+    if primary and config.mode == "vd_eval_test":
         # the reference crashes here on an undefined name
         # (evaluate_gen.py:191 'parsed'); fixed, not replicated
         with open(os.path.join(config.save_path, "predictions.txt"),

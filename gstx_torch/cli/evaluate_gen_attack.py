@@ -16,9 +16,8 @@ MLM head when the flag is empty.  Batches of one dialog (v1.0; v0.9's 25
 are refused by the loop, as the reference asserts).  Metrics go to
 ``performance_log.txt`` (or ``-save_name``).
 
-Devices, the bf16 precast and ``-use_pallas`` as in
+Devices, ranks, the bf16 precast and ``-use_pallas`` as in
 :mod:`gstx_torch.cli.evaluate_gen`; the attacker is cast with the victim.
-One device: the multi-device flags are refused.
 """
 
 from __future__ import annotations
@@ -32,7 +31,8 @@ import numpy as np
 
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
-                                   load_params, parse_config)
+                                   load_params, make_generation_mesh,
+                                   parse_config, primary_process_only)
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -69,7 +69,7 @@ def main(argv=None, max_batches=None, device=None, stats_out=None):
     """``max_batches``: stop after that many eval batches.  ``device``: see
     :func:`gstx_torch.cli.common.default_device`.  ``stats_out``: see
     :func:`gstx_torch.eval.attack_eval.evaluate_attack`.  Returns the
-    metrics."""
+    metrics (in a multi-process run, on rank 0; None on the others)."""
     config = parse_config(argv, "gstx_torch attack evaluation")
     if config.mode != "vd_eval_val":
         raise SystemExit(f"error: -mode {config.mode}: the attack "
@@ -78,7 +78,11 @@ def main(argv=None, max_batches=None, device=None, stats_out=None):
         raise SystemExit("error: -start_path is required")
     dev = default_device(device)
     pprint.pprint(config)
-    apply_runtime_flags(config)
+    apply_runtime_flags(config, dev)
+    dp = make_generation_mesh(config, dev)
+    if dp is None and not primary_process_only():
+        return None
+    primary = dp is None or dp.rank == 0
     os.makedirs(config.save_path, exist_ok=True)
 
     tokenizer = build_tokenizer(config)
@@ -106,15 +110,17 @@ def main(argv=None, max_batches=None, device=None, stats_out=None):
                 return
             yield b
 
-    logger = Logger(os.path.join(config.save_path,
-                                 config.save_name or "performance_log.txt"))
+    logger = Logger(os.path.join(
+        config.save_path, config.save_name or "performance_log.txt")) \
+        if primary else None
     try:
         return evaluate_attack(
             model, batches(), config, coref_dependency=coref_dependency,
             text_attack=text_attack, chunk_size=config.num_options,
-            logger=logger, stats_out=stats_out)
+            logger=logger, stats_out=stats_out, dp=dp)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -12,7 +12,12 @@ answer_ppl}]}.  Abnormal samples (context overflow) are dropped, as
         -start_path_a a.ckpt -save_name out.json ...
 
 It runs on ``cuda`` unless ``main`` is given ``device="cpu"`` or the
-environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.
+environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.  Under
+``-distributed`` across N ranks (``python -m torch.distributed.run
+--nproc_per_node N -m gstx_torch.cli.generate ... -distributed``) each
+rank generates its stripe of the images and writes the shard
+``name.procN.ext``, as the JAX CLI's processes do; the ranks never talk,
+and :func:`gstx_torch.data.cc12m.load_dialog_json` reads the shards back.
 
 Differences from the JAX CLI, none of which changes what a run computes:
   * each batch samples from its own ``torch.Generator`` on the device,
@@ -44,6 +49,7 @@ import torch
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
                                    load_params, pad_batch_rows, parse_config)
+from gstx_torch.core import mesh
 from gstx_torch.core.profiling import annotate, trace
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.decode.dialog_engine import make_dialog_engine
@@ -65,7 +71,14 @@ def _file_fp(path):
     return [st.st_size, st.st_mtime_ns]
 
 
-def _sidecar_meta(config, n_items, device_type):
+def _process_info():
+    """(process_index, process_count): the seam through which tests run one
+    rank of a multi-process generation in one process
+    (``gstx/cli/generate.py:37-40``)."""
+    return mesh.process_index(), mesh.process_count()
+
+
+def _sidecar_meta(config, proc_idx, proc_count, n_items, device_type):
     """Identity of a generation run: a partial sidecar is resumable only by
     a run that would produce the identical batch sequence.  Every setting
     that can change the generated tokens is part of it (the JAX CLI's
@@ -99,7 +112,7 @@ def _sidecar_meta(config, n_items, device_type):
         "context_buckets": config.context_buckets,
         "dynamic_buckets": config.dynamic_buckets,
         "model_parallel": config.model_parallel,
-        "process": [0, 1],  # one process (the JAX CLI's field)
+        "process": [proc_idx, proc_count],
         "n_items": n_items,
         "max_seq_len": config.max_seq_len,
         "max_regions": config.max_regions,
@@ -219,7 +232,7 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
     if not (config.start_path_q and config.start_path_a):
         raise SystemExit("error: -start_path_q and -start_path_a are "
                          "required")
-    apply_runtime_flags(config)
+    apply_runtime_flags(config, dev)
     os.makedirs(config.save_path, exist_ok=True)
 
     tokenizer = build_tokenizer(config)
@@ -265,17 +278,24 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         quantize_memory=config.quantize_memory,
         device=dev)
 
-    # one process on one device: no striping, no per-process output shard
+    proc_idx, proc_count = _process_info()
     loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=False,
                         drop_last=False, num_workers=config.num_workers,
-                        seed=config.seed)
-    out_path = os.path.join(config.save_path, config.save_name)
+                        seed=config.seed, process_index=proc_idx,
+                        process_count=proc_count)
+    save_name = config.save_name
+    if proc_count > 1:
+        # this rank's output shard (gstx/cli/generate.py:255-261)
+        root, ext = os.path.splitext(save_name)
+        save_name = f"{root}.proc{proc_idx}{ext}"
+    out_path = os.path.join(config.save_path, save_name)
 
     # preemption recovery (the reference loses the whole chunk,
     # generate.py:258): completed batches append to a JSONL sidecar; a
     # restart resumes at the first unfinished batch
     sidecar = out_path + ".partial.jsonl" if config.flush_every > 0 else None
-    meta = _sidecar_meta(config, len(dataset), dev.type)
+    meta = _sidecar_meta(config, proc_idx, proc_count, len(dataset),
+                         dev.type)
     start_batch, recovered = 0, []
     if sidecar and config.resume_generation:
         start_batch, recovered = _load_sidecar(sidecar, meta)
@@ -320,7 +340,8 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         cast, pin, and the bucketed engine's initial width from the host
         lengths.  A bf16 engine casts the region features to bf16 here
         (the rounding the device would do, bitwise), halving the upload."""
-        # one device: the data axis is 1, so nothing is padded
+        # a rank computes on one device: its data axis is 1, so nothing
+        # is padded
         batch, n_valid = pad_batch_rows(batch, 1)
         host = {}
         for k in ENGINE_KEYS:

@@ -12,7 +12,9 @@ It runs on ``cuda`` unless ``main`` is given ``device="cpu"`` or the
 environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.  The
 model is built, loaded and (``-dtype bfloat16``) cast to bf16 once per
 run; the fused FFN / projection-LayerNorm kernels follow ``-use_pallas``.
-One device: the multi-device flags are refused.
+One process, as the JAX CLI: ``-data_parallel`` changes nothing (a batch
+of one dialog), ``-model_parallel`` > 1 is refused (ROADMAP queue 1 item
+9b).
 
 Sampling draws from one ``torch.Generator`` on the device, seeded from
 ``-seed``; the JAX CLI splits a ``PRNGKey`` per turn, so sampled replies
@@ -50,7 +52,7 @@ def main(argv=None, input_fn=input, output_fn=print, max_turns=None,
     if not config.start_path:
         raise SystemExit("error: -start_path (the answerer's checkpoint) "
                          "is required")
-    apply_runtime_flags(config)
+    apply_runtime_flags(config, dev)
 
     tokenizer = build_tokenizer(config)
     dataset = VisdialGenDataset(config, tokenizer, mode="vd_gen_val")

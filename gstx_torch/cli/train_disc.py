@@ -18,8 +18,9 @@ environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.
 (they run where no dropout is active); ``-trace_dir`` writes a trace of the
 loop.  The checkpoints (``vd_train_disc_{epoch}.ckpt`` at each epoch
 boundary, ``vd_train_disc_step.ckpt`` under ``-save_every_steps``) and the
-log (``log_disc.txt``, ``metrics.jsonl``) go to ``-save_path``.  One
-device: the multi-device flags are refused.
+log (``log_disc.txt``, ``metrics.jsonl``) go to ``-save_path``.  Data
+parallel over the ranks of ``-distributed`` as
+:mod:`gstx_torch.cli.train_gen`.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def main(argv=None, max_steps=None, device=None, stats_out=None):
     if config.model != "enc_only_a":
         raise SystemExit(f"error: -model {config.model}: discriminative "
                          "training trains enc_only_a")
-    apply_runtime_flags(config)
+    apply_runtime_flags(config, dev)
     dataset = VisdialDiscDataset(config, build_tokenizer(config),
                                  mode="vd_train")
     return train_disc(config, dataset, max_steps=max_steps, device=dev,

@@ -12,8 +12,13 @@ state; ``-use_pallas`` sets the fused FFN / projection-LayerNorm kernels'
 switch (they run where no dropout is active); ``-trace_dir`` writes a
 trace of the loop.  The checkpoints (``{mode}_{chunk}_{epoch}.ckpt``,
 ``{mode}_step.ckpt`` under ``-save_every_steps``, ``final.ckpt``) and the
-log (``log_{mode}.txt``, ``metrics.jsonl``) go to ``-save_path``.  One
-device: the multi-device flags are refused.
+log (``log_{mode}.txt``, ``metrics.jsonl``) go to ``-save_path``.
+
+Data parallel over N ranks, a card each (rank 0 writes the log and the
+checkpoints; ``-data_parallel`` is -1 or N; ``-batch_size`` is global):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m gstx_torch.cli.train_gen ... -distributed
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ def main(argv=None, max_steps=None, device=None, stats_out=None):
     if config.model not in ("enc_dec_a", "enc_dec_q"):
         raise SystemExit(f"error: -model {config.model}: generative "
                          "training trains enc_dec_a or enc_dec_q")
-    apply_runtime_flags(config)
+    apply_runtime_flags(config, dev)
 
     tokenizer = build_tokenizer(config)
     if config.mode == "vd_train":

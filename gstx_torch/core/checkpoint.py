@@ -32,6 +32,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gstx_torch.core import mesh
+
 
 def state_dict_from_jax(params: dict, with_decoder: bool = True,
                         enc_prefix: str = "encoder.bert_pretrained"
@@ -303,8 +305,21 @@ def save_checkpoint(path: str, model, optimizer, step: int):
 
     Written to ``path.tmp`` first, then swapped in three steps, so that at
     every instant ``path`` or ``path.old`` holds a complete checkpoint
-    (:func:`restore_checkpoint` falls back to ``.old``)."""
+    (:func:`restore_checkpoint` falls back to ``.old``).
+
+    In a multi-process run every rank calls it with the same path on a
+    shared file system; the ranks hold the same replica, so rank 0 alone
+    writes and swaps, and the others wait at a barrier before and after
+    (``gstx/core/checkpoint.py:38-70``): no rank returns before the file
+    is complete."""
     path = os.path.abspath(path)
+    mesh.barrier()
+    if mesh.process_index() == 0:
+        _write_checkpoint(path, model, optimizer, step)
+    mesh.barrier()
+
+
+def _write_checkpoint(path, model, optimizer, step):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp, old = path + ".tmp", path + ".old"
     torch.save({"model_state_dict": {k: v.detach().cpu() for k, v in

@@ -1,9 +1,9 @@
 """Logs (the port's copy of ``gstx/core/logging.py``, reference
 ``utils/logger.py:4-35`` semantics): :class:`Logger`, a text log whose lines
 go to stdout and to the file, flushed at once, and :class:`MetricsWriter`,
-an append-only JSONL stream of metrics.  The port runs one process, so
-each file is its ``path`` itself (the JAX package appends ``.procN`` for
-the other processes of a multi-host run, ROADMAP queue 1 item 9)."""
+an append-only JSONL stream of metrics.  A rank other than 0 of a
+multi-process run writes ``path.procN`` (:func:`process_log_path`), so
+that the ranks never interleave appends into one file."""
 
 from __future__ import annotations
 
@@ -12,11 +12,26 @@ import os
 import sys
 import time
 
+from gstx_torch.core.mesh import process_index
+
+
+def process_log_path(path: str) -> str:
+    """Per-process log path (``gstx/core/logging.py:12-28``): rank 0 keeps
+    the configured name; rank N > 0 appends ``.procN`` before the
+    extension.  Identity without a process group."""
+    idx = process_index()
+    if idx == 0:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.proc{idx}{ext}"
+
 
 class Logger:
-    """write() goes to both stdout and the log file, flushed immediately."""
+    """write() goes to both stdout and the log file, flushed immediately;
+    a rank other than 0 writes ``path.procN``."""
 
     def __init__(self, path: str):
+        path = process_log_path(path)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self.path = path
         self._f = open(path, "a")
@@ -33,9 +48,11 @@ class Logger:
 
 class MetricsWriter:
     """One JSON line per :meth:`log`: the step, the wall time and the
-    values (``gstx/core/logging.py:52-69``)."""
+    values (``gstx/core/logging.py:52-69``); a rank other than 0 writes
+    ``path.procN``."""
 
     def __init__(self, path: str):
+        path = process_log_path(path)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._f = open(path, "a")
 

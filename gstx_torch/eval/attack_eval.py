@@ -11,7 +11,11 @@ device once, in f32, and each chunk gathers its rows there, as
 :mod:`gstx_torch.eval.rank_gen` does (JAX broadcasts them on the host);
 f32, because FGSM steps them in f32, and the model casts them to its
 activation dtype inside, as it does any features.  Scores come back to
-the host once a batch.
+the host once a batch.  Across the ranks of ``dp``, each round's chunk
+splits over them as :mod:`gstx_torch.eval.rank_gen` splits its chunks: a
+rank attacks and scores its rows (the padded rows take no FGSM step, their
+relevance being 0, ``gstx/eval/attack_eval.py:51-53``), and rank 0 gathers
+the scores and computes the metrics.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from gstx_torch.core.config import PAD_ID, SEP_ID, GSTConfig
 from gstx_torch.eval.attacks import TextAttack, make_fgsm_scorer
 from gstx_torch.eval.metrics import NDCG, SparseGTMetrics
 from gstx_torch.eval.rank_gen import (batch_to_device, chunk_inputs,
-                                      flatten_gen, make_chunk_scorer)
+                                      flatten_gen, gather_scores,
+                                      make_chunk_scorer, rank_share)
 from gstx_torch.models.encdec import GSTVisualDialog
 
 
@@ -76,11 +81,12 @@ def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
                     coref_dependency: Optional[List[dict]] = None,
                     text_attack: Optional[TextAttack] = None,
                     epsilon: float = 1.0, chunk_size: int = 100,
-                    logger=None, stats_out=None) -> Dict:
+                    logger=None, stats_out=None, dp=None) -> Optional[Dict]:
     """The attacked generative evaluation of ``model`` over ``loader``'s
     collated ``VisdialGenDataset`` ``vd_eval_val`` batches of one dialog,
-    on the model's device; returns R@k / MRR / mean rank, and NDCG for
-    VisDial v1.0.
+    on the model's device, across the ranks of ``dp`` when given; returns
+    R@k / MRR / mean rank, and NDCG for VisDial v1.0 (under ``dp``, on
+    rank 0; None on the others).
 
     ``stats_out``, a dict, receives this run's ``batches``, ``images``,
     scored ``sequences``, ``chunks``, ``fgsm_chunks`` (the chunks whose
@@ -111,16 +117,22 @@ def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
                 f"{b} dialogs and chunks of {chunk_size}")
         sep = batch["enc_sep_indices"].reshape(rounds * options, -1)
         round_id = int(batch["round_id"][0, 0])
+        rows, valid = rank_share(dp, options, device)
+        relevance = np.asarray(batch["gt_relevance"][0], np.float32)
+        if dp is not None:
+            # a padded row repeats row 0 but takes relevance 0: no FGSM step
+            relevance = np.where(valid, relevance[rows.cpu().numpy()], 0.0)
+            host_rows = rows.cpu().numpy()
         out = []
         with torch.no_grad():
             dev_text, dev_images = batch_to_device(text, images, device,
                                                    torch.float32, ())
-            relevance = torch.from_numpy(np.asarray(
-                batch["gt_relevance"][0], np.float32)).to(device)
+            relevance = torch.from_numpy(np.ascontiguousarray(
+                relevance, np.float32)).to(device)
             for j in range(rounds):
                 lo, hi = j * options, (j + 1) * options
                 chunk = chunk_inputs(dev_text, dev_images, lo, hi,
-                                     rounds * options)
+                                     rounds * options, rows)
                 # the round of the dialog from its [SEP] count
                 # (evaluate_gen_attack.py:94-96)
                 is_dense = int((sep[lo] != 0).sum() // 2) == round_id
@@ -130,25 +142,31 @@ def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
                     continue
                 host = {k: v[lo:hi] for k, v in text.items()}
                 host["enc_sep_indices"] = sep[lo:hi]
+                if dp is not None:
+                    host = {k: v[host_rows] for k, v in host.items()}
                 dep = coref_dependency[batch_idx]["coreference"][j] \
                     if coref_dependency else {}
                 attacked, changed = _text_attacked(
                     config, text_attack, chunk, host, dep, is_dense)
                 totals["text_attacked"] += changed
                 out.append(score_chunk(attacked))
-            scores = torch.cat(out).float().cpu().numpy().reshape(
-                1, rounds, options)
+            scores = gather_scores(dp, torch.cat(out), rounds, options)
         totals["batches"] += 1
         totals["images"] += 1
         totals["sequences"] += rounds * options
         totals["chunks"] += rounds
+        batch_idx += 1
+        if scores is None:
+            continue  # a rank other than 0: its share is sent
+        scores = scores.numpy().reshape(1, rounds, options)
         sparse.observe(scores, batch["gt_option_inds"])
         if config.vd_version == "1.0":
             ndcg.observe(scores[np.arange(1), round_id - 1],
                          batch["gt_relevance"])
-        batch_idx += 1
     if stats_out is not None:
         stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
+    if dp is not None and dp.rank != 0:
+        return None
 
     metrics = dict(sparse.retrieve(reset=True))
     if config.vd_version == "1.0":

@@ -51,11 +51,12 @@ def flatten_disc(batch):
 
 def evaluate_disc(model: GSTVisualDialog, loader, mode: str = "vd_eval_val",
                   vd_version: str = "1.0", chunk_size: int = 200,
-                  logger=None, stats_out=None):
+                  logger=None, stats_out=None, dp=None):
     """Run the discriminative evaluation of ``model`` (an encoder-only
     model, or a full one whose encoder is used) over ``loader``'s collated
-    ``VisdialDiscDataset`` batches on the model's device."""
+    ``VisdialDiscDataset`` batches on the model's device, across the ranks
+    of ``dp`` when given (``gstx/eval/rank_disc.py:96-98``)."""
     return rank_candidates(
         make_nsp_scorer(model), loader, flatten_disc, mode, vd_version,
         chunk_size, logger, model.device, model.dtype,
-        ("image_feat", "image_loc"), stats_out)
+        ("image_feat", "image_loc"), stats_out, dp)

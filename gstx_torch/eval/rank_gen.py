@@ -8,9 +8,13 @@ R@k / MRR / mean rank (+ NDCG for VisDial v1.0) or to the EvalAI ranks
 list of test mode.  :func:`rank_candidates` is the loop that the
 discriminative evaluator (:mod:`gstx_torch.eval.rank_disc`) shares.
 
+Data parallel across ranks (``dp``, a :class:`gstx_torch.core.mesh.
+DataParallel`): each chunk's rows, padded to a multiple of the ranks,
+split over them (``gstx/eval/rank_gen.py:115-125``); each rank scores its
+rows and rank 0 gathers a batch's scores, computes the metrics and alone
+returns them.
+
 Differences from the JAX evaluator, none of which changes a score:
-  * one device (no ``mesh``): multi-GPU evaluation is ROADMAP queue 1
-    item 9;
   * each batch goes to the device once: its flattened text rows, and its
     [B, ...] region features (cast there to the model's activation dtype,
     which the model's first layer would do to every row), whose rows each
@@ -25,7 +29,7 @@ Differences from the JAX evaluator, none of which changes a score:
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,32 +81,60 @@ def batch_to_device(text: Dict[str, np.ndarray],
     return dev_text, dev_images
 
 
-def chunk_inputs(text, images, start: int, stop: int, per_image: int):
+def chunk_inputs(text, images, start: int, stop: int, per_image: int,
+                 rows: Optional[torch.Tensor] = None):
     """Rows [start, stop) of the flattened batch: the text rows sliced, and
     each row's image gathered (row // per_image), equal to the rows of the
     host broadcast ``x[:, None, None]`` -> [B, rounds, options, ...]
-    reshaped to [total, ...] (``gstx/eval/rank_gen.py:107-112``)."""
-    chunk = {k: v[start:stop] for k, v in text.items()}
+    reshaped to [total, ...] (``gstx/eval/rank_gen.py:107-112``).
+    ``rows``, on the device: only the rows ``start + rows`` (a rank's share
+    of the chunk)."""
     any_image = next(iter(images.values()))
-    idx = torch.arange(start, stop, device=any_image.device) // per_image
+    if rows is None:
+        chunk = {k: v[start:stop] for k, v in text.items()}
+        idx = torch.arange(start, stop, device=any_image.device)
+    else:
+        idx = rows + start
+        chunk = {k: v.index_select(0, idx) for k, v in text.items()}
+    idx = idx // per_image
     chunk.update({k: v.index_select(0, idx) for k, v in images.items()})
     return chunk
+
+
+def rank_share(dp, n: int, device):
+    """(this rank's rows of an ``n``-row chunk as a device tensor, which of
+    them are real rows), or (None, None) without ``dp``."""
+    if dp is None:
+        return None, None
+    rows, valid = dp.row_indices(n)
+    return torch.from_numpy(rows).to(device), valid
+
+
+def gather_scores(dp, local: torch.Tensor, n_chunks: int, cs: int):
+    """A batch's scores as one host [n_chunks * cs] tensor: ``local`` as it
+    is without ``dp``; else each rank's [n_chunks * per] share gathered
+    to rank 0 and put back in order (None on the other ranks)."""
+    if dp is None:
+        return local.float().cpu()
+    got = dp.gather_rows(local.float().reshape(n_chunks, -1).t(), cs)
+    return None if got is None else got.t().reshape(-1)
 
 
 def rank_candidates(score_chunk: Callable, batches, flatten: Callable,
                     mode: str, vd_version: str, chunk_size: int, logger,
                     device, feat_dtype: torch.dtype,
-                    feat_keys: Sequence[str], stats_out=None):
+                    feat_keys: Sequence[str], stats_out=None, dp=None):
     """The ranking loop of both evaluators.  ``flatten(batch)`` returns
     ``(text, images, (B, rounds, options))``: the [total, L] host rows and
     the [B, ...] per-image arrays.  Every chunk of a batch is queued on the
     device before its scores come back to the host, once a batch.
 
     Returns the metrics dict (``vd_eval_val``) or the ranks list
-    (``vd_eval_test``).  ``stats_out``, a dict, receives this run's
-    ``batches``, ``images``, scored ``sequences``, ``chunks``,
-    ``loop_seconds`` (the batch loop's wall time, data loading included)
-    and ``wait_seconds`` (the part of it spent waiting for ``batches``).
+    (``vd_eval_test``); under ``dp``, on rank 0 only (None elsewhere).
+    ``stats_out``, a dict, receives this run's ``batches``, ``images``,
+    scored ``sequences``, ``chunks``, ``loop_seconds`` (the batch loop's
+    wall time, data loading included) and ``wait_seconds`` (the part of
+    it spent waiting for ``batches``).
     """
     sparse = SparseGTMetrics()
     ndcg = NDCG()
@@ -126,15 +158,18 @@ def rank_candidates(score_chunk: Callable, batches, flatten: Callable,
                                  f"chunks of {cs}")
             dev_text, dev_images = batch_to_device(text, images, device,
                                                    feat_dtype, feat_keys)
+            rows, _ = rank_share(dp, cs, device)
             out = [score_chunk(chunk_inputs(dev_text, dev_images, j, j + cs,
-                                            rounds * options))
+                                            rounds * options, rows))
                    for j in range(0, total, cs)]
-            scores = torch.cat(out).float().cpu().numpy().reshape(
-                b, rounds, options)
+            scores = gather_scores(dp, torch.cat(out), total // cs, cs)
             totals["batches"] += 1
             totals["images"] += b
             totals["sequences"] += total
             totals["chunks"] += total // cs
+            if scores is None:
+                continue  # a rank other than 0: its share is sent
+            scores = scores.numpy().reshape(b, rounds, options)
 
             if mode == "vd_eval_val":
                 sparse.observe(scores, batch["gt_option_inds"])
@@ -152,6 +187,8 @@ def rank_candidates(score_chunk: Callable, batches, flatten: Callable,
                     })
     if stats_out is not None:
         stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
+    if dp is not None and dp.rank != 0:
+        return None
 
     if mode == "vd_eval_val":
         metrics = {}
@@ -177,12 +214,13 @@ def flatten_gen(batch):
 
 def evaluate_gen(model: GSTVisualDialog, loader, mode: str = "vd_eval_val",
                  vd_version: str = "1.0", chunk_size: int = 500,
-                 logger=None, stats_out=None):
+                 logger=None, stats_out=None, dp=None):
     """Run the generative evaluation of ``model`` over ``loader``'s
     collated batches (``VisdialGenDataset`` ``vd_eval_val`` /
-    ``vd_eval_test`` items) on the model's device.  See
-    :func:`rank_candidates` for what it returns."""
+    ``vd_eval_test`` items) on the model's device, across the ranks of
+    ``dp`` when given.  See :func:`rank_candidates` for what it
+    returns."""
     return rank_candidates(
         make_chunk_scorer(model), loader, flatten_gen, mode, vd_version,
         chunk_size, logger, model.device, model.dtype,
-        ("enc_image_feat", "enc_image_loc"), stats_out)
+        ("enc_image_feat", "enc_image_loc"), stats_out, dp)

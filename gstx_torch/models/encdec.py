@@ -268,12 +268,17 @@ def teacher_forced_nll(logits, labels, pad_id: int = 0) -> torch.Tensor:
     return torch.where(labels == pad_id, 0.0, nll)
 
 
-def teacher_forced_loss(logits, labels, pad_id: int = 0) -> torch.Tensor:
+def teacher_forced_loss(logits, labels, pad_id: int = 0,
+                        denom=None) -> torch.Tensor:
     """Mean CE over non-pad label positions (torch CrossEntropyLoss with
     ignore_index=pad, reduction='mean'; ``gstx/models/encdec.py:245-251``):
-    a scalar, 0 when every label is pad."""
+    a scalar, 0 when every label is pad.  ``denom``, when given, replaces
+    the count of non-pad labels (at least 1): a data-parallel rank divides
+    its rows' sum by the count over every rank's rows."""
     nll = teacher_forced_nll(logits, labels, pad_id)
-    return nll.sum() / (labels != pad_id).sum().clamp(min=1)
+    if denom is None:
+        denom = (labels != pad_id).sum().clamp(min=1)
+    return nll.sum() / denom
 
 
 def candidate_log_likelihood(logits, dec_input_ids, pad_id: int = 0

@@ -101,21 +101,26 @@ class PreTrainingHeads(nn.Module):
 # ---------------------------------------------------------------------- #
 
 
-def masked_lm_loss(prediction_t, mlm_labels) -> torch.Tensor:
+def masked_lm_loss(prediction_t, mlm_labels, denom=None) -> torch.Tensor:
     """Cross-entropy with ignore_index=-1, the mean over the labelled
     positions in f32 (vilbert_dialog.py:1444,1504-1507); 0 when every label
-    is -1, where ``F.cross_entropy`` gives NaN."""
+    is -1, where ``F.cross_entropy`` gives NaN.  ``denom``, as the heads'
+    other losses take it, replaces the count the mean divides by (a
+    data-parallel rank's: the count over every rank's rows)."""
     logits = prediction_t.reshape(-1, prediction_t.shape[-1]).float()
     labels = mlm_labels.reshape(-1)
     valid = labels != -1
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    if denom is None:
+        denom = valid.sum().clamp(min=1)
+    return nll.sum() / denom
 
 
 def masked_img_loss(prediction_v, image_target, image_label,
-                    predict_feature: bool = False) -> torch.Tensor:
+                    predict_feature: bool = False,
+                    denom=None) -> torch.Tensor:
     """Masked-region loss (vilbert_dialog.py:1489-1501), f32.  KL path:
     the elementwise ``KLDivLoss(log_softmax(pred), target)`` summed over
     the masked regions, over the COUNT of masked regions.  MSE path
@@ -126,19 +131,20 @@ def masked_img_loss(prediction_v, image_target, image_label,
     target = image_target.float()
     if predict_feature:
         per = (prediction_v.float() - target) ** 2
-        denom = (mask * torch.ones_like(per)).sum().clamp(min=1.0)
+        count = (mask * torch.ones_like(per)).sum().clamp(min=1.0)
     else:
         logp = F.log_softmax(prediction_v.float(), dim=-1)
         # KLDivLoss(reduction='none'): t * (log t - logp), 0 where t == 0
         pos = target > 0
         per = torch.where(pos, target * (torch.log(torch.where(
             pos, target, 1.0)) - logp), -target * logp)
-        denom = masked.sum().clamp(min=1)
-    return (per * mask).sum() / denom
+        count = masked.sum().clamp(min=1)
+    return (per * mask).sum() / (count if denom is None else denom)
 
 
-def soft_nsp_loss(seq_relationship, labels) -> torch.Tensor:
+def soft_nsp_loss(seq_relationship, labels, denom=None) -> torch.Tensor:
     """The soft next-sentence loss ``-(label * logprob).sum() / batch``
     (vilbert_dialog.py:1509-1510); ``labels`` are [B, 2] soft targets."""
     logp = F.log_softmax(seq_relationship.reshape(-1, 2).float(), dim=-1)
-    return -(labels.reshape(-1, 2).float() * logp).sum() / labels.shape[0]
+    return -(labels.reshape(-1, 2).float() * logp).sum() / (
+        labels.shape[0] if denom is None else denom)

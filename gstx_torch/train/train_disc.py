@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from gstx_torch.core import checkpoint as ckpt_lib
+from gstx_torch.core import mesh
 from gstx_torch.core.config import GSTConfig
-from gstx_torch.data.loader import DataLoader
+from gstx_torch.core.mesh import DataParallel
 from gstx_torch.models.encdec import GSTVisualDialog
 from gstx_torch.models.heads import (masked_img_loss, masked_lm_loss,
                                      soft_nsp_loss)
@@ -65,21 +66,44 @@ def select_rows(batch: Dict[str, np.ndarray],
     return out
 
 
+def loss_denominators(rows: Dict[str, np.ndarray], predict_feature: bool
+                      ) -> Dict[str, float]:
+    """What each of the three losses divides by over the host ``rows``
+    (every drawn row of the step): the labelled MLM positions, the masked
+    regions (their elements under ``predict_feature``), the rows; each at
+    least 1, as :mod:`gstx_torch.models.heads` clamps them."""
+    masked = rows["image_label"] == 1
+    regions = float(masked.sum())
+    if predict_feature:
+        regions *= rows["image_target"].shape[-1]
+    return {"lm_loss": max(1, int((rows["mask"] != -1).sum())),
+            "img_loss": max(1.0, regions) if predict_feature
+            else max(1, int(masked.sum())),
+            "nsp_loss": rows["next_sentence_labels"].reshape(-1, 2).shape[0]}
+
+
 def row_losses(model: GSTVisualDialog, rows, config: GSTConfig,
-               train: Optional[Training]) -> Dict[str, torch.Tensor]:
+               train: Optional[Training],
+               denoms: Optional[Dict[str, float]] = None
+               ) -> Dict[str, torch.Tensor]:
     """The three losses of a row batch on the model's device and their
     coefficient-weighted sum ``loss`` (the JAX ``loss_fn``,
-    ``gstx/train/train_disc.py:44-57``)."""
+    ``gstx/train/train_disc.py:44-57``).  ``denoms``
+    (:func:`loss_denominators` over every rank's rows) replaces what each
+    loss divides by, for a data-parallel rank's share."""
+    denoms = denoms or {}
     att_mask = nsp_attention_mask(rows["sep_indices"], rows["hist_len"],
                                   rows["tokens"].shape[-1])
     pred_t, pred_v, nsp = model.pretrain_scores(
         rows["tokens"], rows["image_feat"], rows["image_loc"],
         rows["segments"], att_mask, rows["image_mask"], train=train)
-    out = {"lm_loss": masked_lm_loss(pred_t, rows["mask"]),
+    out = {"lm_loss": masked_lm_loss(pred_t, rows["mask"],
+                                     denoms.get("lm_loss")),
            "img_loss": masked_img_loss(
                pred_v, rows["image_target"], rows["image_label"],
-               model.enc_config.predict_feature),
-           "nsp_loss": soft_nsp_loss(nsp, rows["next_sentence_labels"])}
+               model.enc_config.predict_feature, denoms.get("img_loss")),
+           "nsp_loss": soft_nsp_loss(nsp, rows["next_sentence_labels"],
+                                     denoms.get("nsp_loss"))}
     out["loss"] = (config.lm_loss_coeff * out["lm_loss"]
                    + config.nsp_loss_coeff * out["nsp_loss"]
                    + config.img_loss_coeff * out["img_loss"])
@@ -87,23 +111,38 @@ def row_losses(model: GSTVisualDialog, rows, config: GSTConfig,
 
 
 def make_disc_train_step(model: GSTVisualDialog, optimizer: AdamW,
-                         config: GSTConfig, remat: Optional[str] = None):
+                         config: GSTConfig, remat: Optional[str] = None,
+                         dp: Optional[DataParallel] = None):
     """``step(batch, gen) -> losses``: one update from a numpy batch.  It
     draws ``batch_size`` distinct rows, then the seed of its dropout masks,
     from ``gen``.  The gradients stay on the parameters until the next step
     clears them.  Returns the four losses as device scalars,
-    unsynchronised."""
+    unsynchronised.  With ``dp``, as
+    :func:`gstx_torch.train.train_gen.make_train_step`: the global batch
+    gathered, the same rows drawn on every rank, each rank's share divided
+    by the counts over all of them, the gradients and losses summed."""
+    mine = train_gen.rank_rows(config.batch_size, dp)
 
     def step(batch, gen: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
+        if dp is not None:
+            batch = dp.gather_batch(batch)
         total = int(np.prod(batch["tokens"].shape[:3]))
         idx = torch.randperm(total, generator=gen)[:config.batch_size]
         seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
-        rows = rows_to_device(select_rows(batch, idx.numpy()), model.device)
-        losses = row_losses(model, rows, config, Training(seed, remat))
+        drawn = select_rows(batch, idx.numpy())
+        denoms = loss_denominators(drawn, model.enc_config.predict_feature)
+        rows = rows_to_device({k: v[mine] for k, v in drawn.items()},
+                              model.device)
+        losses = row_losses(model, rows, config,
+                            Training(train_gen.rank_seed(seed, dp), remat),
+                            denoms)
         losses["loss"].backward()
+        if dp is not None:
+            dp.all_reduce_grads_(model.parameters())
         optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return {k: v.detach() if dp is None else dp.sum(v.detach())
+                for k, v in losses.items()}
 
     return step
 
@@ -138,20 +177,22 @@ def train_disc(config: GSTConfig, dataset, max_steps: Optional[int] = None,
     """The training loop (``gstx/cli/train_disc.py:35-160``) through
     :func:`gstx_torch.train.train_gen.run_training`, whose ``stats_out`` it
     takes (the losses are LOSS_NAMES); returns (model, optimizer).  No
-    final checkpoint, as the JAX CLI."""
+    final checkpoint, as the JAX CLI.  Data parallel across a process
+    group as :func:`gstx_torch.train.train_gen.train_gen`."""
     os.makedirs(config.save_path, exist_ok=True)
     num_iter_epoch = max(1, len(dataset) // config.batch_size)
+    device = torch.device(device)
+    dp = mesh.training_data_parallel(config.data_parallel, device)
     model, optimizer = train_gen.init_model_and_state(
-        config, num_iter_epoch * config.num_epochs, torch.device(device),
+        config, num_iter_epoch * config.num_epochs, device,
         use_decoder=False, warmup_steps=DISC_WARMUP_STEPS)
     start = (0, False)
     if config.start_path:
         start = load_start_checkpoint(config, model, optimizer)
     step_fn = make_disc_train_step(
         model, optimizer, config,
-        config.remat_policy if config.remat else None)
-    loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=True,
-                        num_workers=config.num_workers, seed=config.seed)
+        config.remat_policy if config.remat else None, dp)
+    loader = train_gen.striped_loader(config, dataset)
     train_gen.run_training(
         config, model, optimizer, step_fn, loader, num_iter_epoch, start,
         "log_disc.txt",

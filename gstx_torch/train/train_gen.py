@@ -26,8 +26,10 @@ import numpy as np
 import torch
 
 from gstx_torch.core import checkpoint as ckpt_lib
-from gstx_torch.core.config import GSTConfig
+from gstx_torch.core import mesh
+from gstx_torch.core.config import PAD_ID, GSTConfig
 from gstx_torch.core.logging import Logger, MetricsWriter
+from gstx_torch.core.mesh import DataParallel
 from gstx_torch.core.profiling import trace
 from gstx_torch.data.loader import DataLoader, batch_iter
 from gstx_torch.models.encdec import GSTVisualDialog, teacher_forced_loss
@@ -81,46 +83,88 @@ def rows_to_device(rows, device):
             for k, v in rows.items()}
 
 
-def row_loss(model: GSTVisualDialog, rows, train: Optional[Training]):
+def row_loss(model: GSTVisualDialog, rows, train: Optional[Training],
+             denom=None):
     """The teacher-forced loss of a row batch on the model's device (the
-    JAX ``loss_fn``, ``gstx/train/train_gen.py:75-85``)."""
+    JAX ``loss_fn``, ``gstx/train/train_gen.py:75-85``); ``denom``: see
+    :func:`gstx_torch.models.encdec.teacher_forced_loss`."""
     logits = model.score(
         rows["enc_input_ids"], rows["enc_image_feat"], rows["enc_image_loc"],
         rows["enc_segments"], rows["enc_att_mask"], rows["enc_image_mask"],
         rows["dec_input_ids"], rows["dec_att_mask"], train=train)
-    return teacher_forced_loss(logits, rows["dec_labels"])
+    return teacher_forced_loss(logits, rows["dec_labels"], denom=denom)
+
+
+def rank_rows(n: int, dp: Optional[DataParallel]):
+    """The sampled rows of ``n`` that this rank computes: all of them
+    without ``dp``, else its run of :meth:`DataParallel.row_indices`.  The
+    rows must split evenly over the ranks (``mesh.local_batch_size``
+    raises otherwise), since a padded row would count twice in the loss."""
+    if dp is None:
+        return slice(None)
+    mesh.local_batch_size(n, dp.size)
+    return dp.row_indices(n)[0]
+
+
+def rank_seed(seed: int, dp: Optional[DataParallel]) -> int:
+    """The dropout seed of this rank's rows: the step's seed plus the rank,
+    so that the ranks' masks differ and rank 0's are the single process's
+    (a function of (seed, iteration, rank); a resume replays it)."""
+    return seed if dp is None else seed + dp.rank
 
 
 def make_train_step(model: GSTVisualDialog, optimizer: AdamW,
                     batch_size: int, batch_multiply: int = 1,
-                    remat: Optional[str] = None):
+                    remat: Optional[str] = None,
+                    dp: Optional[DataParallel] = None):
     """``step(batch, gen) -> loss``: one update from a numpy batch.  Each of
     the ``batch_multiply`` micro-steps draws ``batch_size`` rows, then the
     seed of its dropout masks, from ``gen``; their gradients are summed and
     divided by ``batch_multiply`` (``gstx/train/train_gen.py:86-118``).
     The gradients stay on the parameters until the next step clears them.
-    Returns the (mean) loss as a device scalar, unsynchronised."""
+    Returns the (mean) loss as a device scalar, unsynchronised.
+
+    With ``dp`` the batch is this rank's stripe.  The step is the
+    single-process step on the global batch, every rank's stripe in rank
+    order (the JAX package's ``make_global_batch``): the stripes are
+    all-gathered, every rank draws the same rows from ``gen`` over them and
+    computes its share (:func:`rank_rows`), each share's NLL sum is
+    divided by the non-pad label count of all the drawn rows, and the
+    gradients are summed over the ranks.  Gathering the whole batch (not
+    only the rows a rank needs) keeps every rank's share the same size,
+    ``batch_size / ranks`` rows, as the sharded JAX step has it, for one
+    all-gather of the host batch a step.  The returned loss is the global
+    one (summed over the ranks)."""
     device = model.device
+    mine = rank_rows(batch_size, dp)
 
     def step(batch, gen: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
+        if dp is not None:
+            batch = dp.gather_batch(batch)
         weights = candidate_weights(batch["dec_labels"])
         losses = []
         for _ in range(max(1, batch_multiply)):
             idx = torch.multinomial(weights, batch_size, replacement=True,
-                                    generator=gen)
+                                    generator=gen).numpy()
             seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
-            rows = rows_to_device(select_rows(batch, idx.numpy()), device)
-            loss = row_loss(model, rows, Training(seed, remat))
+            labels = select_rows(batch, idx, ("dec_labels",), ())
+            count = max(1, int((labels["dec_labels"] != PAD_ID).sum()))
+            rows = rows_to_device(select_rows(batch, idx[mine]), device)
+            loss = row_loss(model, rows, Training(rank_seed(seed, dp),
+                                                  remat), denom=count)
             loss.backward()
             losses.append(loss.detach())
+        if dp is not None:
+            dp.all_reduce_grads_(model.parameters())
         if batch_multiply > 1:
             with torch.no_grad():
                 for p in model.parameters():
                     if p.grad is not None:
                         p.grad.div_(batch_multiply)
         optimizer.step()
-        return torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        return loss if dp is None else dp.sum(loss)
 
     return step
 
@@ -192,6 +236,20 @@ def checkpoint_saver(save_path: str, model, optimizer,
     return save
 
 
+def striped_loader(config: GSTConfig, dataset) -> DataLoader:
+    """The trainers' loader: shuffled, and in a multi-process run this
+    rank's stripe of the shuffled order in batches of ``batch_size /
+    ranks``, every rank the same number of batches an epoch
+    (``gstx/train/train_gen.py:203-213``)."""
+    count = mesh.process_count()
+    return DataLoader(dataset,
+                      batch_size=mesh.local_batch_size(config.batch_size,
+                                                       count),
+                      shuffle=True, num_workers=config.num_workers,
+                      seed=config.seed, process_index=mesh.process_index(),
+                      process_count=count, even_stripes=True)
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -219,11 +277,17 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
     on the device (``step_seconds``); the first step's gradient norm per
     parameter (``grad_norms``, by name); each checkpoint's path, size and
     save time (``saves``); and ``start_iter_id``.  Reading them
-    synchronises every step."""
+    synchronises every step.
+
+    In a multi-process run every rank runs the loop (the checkpoints are
+    collective: rank 0 writes them) and rank 0 alone writes the log."""
     device = model.device
-    logger = Logger(os.path.join(config.save_path, log_name))
-    metrics_writer = MetricsWriter(
-        os.path.join(config.save_path, "metrics.jsonl"))
+    primary = mesh.process_index() == 0
+    logger = metrics_writer = None
+    if primary:
+        logger = Logger(os.path.join(config.save_path, log_name))
+        metrics_writer = MetricsWriter(
+            os.path.join(config.save_path, "metrics.jsonl"))
     start_iter_id, start_exact = start
     if stats_out is not None:
         stats_out.update(losses={}, step_seconds=[], grad_norms={},
@@ -249,7 +313,7 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
                         n: float(p.grad.float().norm())
                         for n, p in model.named_parameters()
                         if p.grad is not None}
-            if iter_id % config.log_every == 0:
+            if primary and iter_id % config.log_every == 0:
                 lr, _ = optimizer.current_lrs()
                 text, record = log_fields(
                     {k: float(v) for k, v in losses.items()}, lr)
@@ -268,7 +332,8 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
             if iter_id % num_iter_epoch == 0 and (
                     start_exact or iter_id != start_iter_id):
                 save(epoch_ckpt.format(epoch=epoch_id), iter_id)
-                logger.write(f"\n{epoch_id} epoch ended.")
+                if primary:
+                    logger.write(f"\n{epoch_id} epoch ended.")
             if config.save_every_steps > 0 and \
                     (iter_id + 1) % config.save_every_steps == 0:
                 # step = completed iterations: a resume replays nothing
@@ -278,8 +343,9 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
                 break
     if final_ckpt is not None:
         save(final_ckpt, iter_id)
-    logger.close()
-    metrics_writer.close()
+    if primary:
+        logger.close()
+        metrics_writer.close()
 
 
 def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
@@ -288,20 +354,22 @@ def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
     """The generative training loop (``gstx/train/train_gen.py:139-279``,
     reference train_gen.py:139-358) through :func:`run_training`, whose
     ``stats_out`` it takes (the loss is ``loss``); returns (model,
-    optimizer)."""
+    optimizer).  Under a process group every rank trains one replica on
+    its stripe of the data (:func:`make_train_step`)."""
     os.makedirs(config.save_path, exist_ok=True)
     num_iter_epoch = max(1, num_iter_epoch)
     t_total = num_iter_epoch * 100  # train_gen.py:172 (reference :179)
-    model, optimizer = init_model_and_state(config, t_total,
-                                            torch.device(device))
+    device = torch.device(device)
+    dp = mesh.training_data_parallel(config.data_parallel, device)
+    model, optimizer = init_model_and_state(config, t_total, device)
     start = (0, False)
     if config.start_path:
         start = load_start_checkpoint(config, model, optimizer)
     step_fn = make_train_step(model, optimizer, config.batch_size,
                               config.batch_multiply,
-                              config.remat_policy if config.remat else None)
-    loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=True,
-                        num_workers=config.num_workers, seed=config.seed)
+                              config.remat_policy if config.remat else None,
+                              dp)
+    loader = striped_loader(config, dataset)
     run_training(
         config, model, optimizer,
         lambda batch, gen: {"loss": step_fn(batch, gen)}, loader,

@@ -525,18 +525,28 @@ def test_text_attacks_change_the_scored_context(env, runs):
         assert changed > 0, attack
 
 
+# message None: not refused; as the JAX CLI, in one process
+# -data_parallel 2 runs as one rank and -distributed alone is a no-op
 REFUSALS = [(["-mode", "vd_eval_test"], "vd_eval_val"),
             (["-start_path", ""], "start_path"),
-            (["-data_parallel", "2"], "multi-GPU"),
-            (["-distributed"], "multi-GPU")]
+            (["-data_parallel", "2"], None),
+            (["-distributed"], None)]
 
 
 @pytest.mark.parametrize("extra,message", REFUSALS,
                          ids=[" ".join(e) for e, _ in REFUSALS])
 def test_cli_refusals(env, tmp_path, extra, message):
-    with pytest.raises(SystemExit, match=message):
-        tcli.main(_argv(env, "fgsm", str(tmp_path)) + extra, device="cpu")
-    kffn.enable(True)
+    argv = _argv(env, "fgsm", str(tmp_path))
+    try:
+        if message is not None:
+            with pytest.raises(SystemExit, match=message):
+                tcli.main(argv + extra, device="cpu")
+            return
+        got = tcli.main(argv + extra, device="cpu", max_batches=1)
+        assert got == tcli.main(argv, device="cpu", max_batches=1)
+        assert set(got) >= {"r@1", "mrr", "ndcg"}
+    finally:
+        kffn.enable(True)
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(env, tmp_path,

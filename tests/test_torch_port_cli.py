@@ -236,14 +236,16 @@ def test_resume_unflushed_tail(env):
 
 
 def test_sidecar_meta_matches_jax_and_names_the_device(env):
-    """The port's sidecar identity holds every field of the JAX CLI's, and
-    the device type, whose generator draws the samples."""
+    """The port's sidecar identity holds every field of the JAX CLI's (the
+    process's place in a multi-process run among them), and the device
+    type, whose generator draws the samples."""
     args, _, ckpt, _ = env
     argv = args + _base(ckpt) + ["-save_name", "x.json"]
-    jmeta = jgen._sidecar_meta(j_parse_config(argv), 0, 1, 4)
-    tmeta = tgen._sidecar_meta(t_parse_config(argv), 4, "cpu")
-    assert tmeta.pop("device") == "cpu"
-    assert tmeta == jmeta
+    for proc in ((0, 1), (1, 2)):
+        jmeta = jgen._sidecar_meta(j_parse_config(argv), *proc, 4)
+        tmeta = tgen._sidecar_meta(t_parse_config(argv), *proc, 4, "cpu")
+        assert tmeta.pop("device") == "cpu"
+        assert tmeta == jmeta
 
 
 def test_prefetch_worker_unblocks_on_consumer_failure():
@@ -379,7 +381,16 @@ def test_gstx_platform_cpu_selects_the_cpu(env, monkeypatch):
 @pytest.mark.parametrize("flags", [["-data_parallel", "2"],
                                    ["-model_parallel", "2"],
                                    ["-distributed"]], ids=str)
-def test_multi_device_flags_exit(env, flags):
-    args, _, ckpt, _ = env
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 9"):
-        port(args + _base(ckpt) + ["-save_name", "mp.json"] + flags)
+def test_multi_device_flags_exit(env, port_vd, flags):
+    """As the JAX CLI: in one process -data_parallel 2 runs as one rank
+    (make_generation_mesh's None for one device) and -distributed alone is
+    a no-op, both writing the plain run's records to the unsharded file;
+    tensor parallelism exits, citing ROADMAP queue 1 item 9b."""
+    args, cfg, ckpt, _ = env
+    if flags[0] == "-model_parallel":
+        with pytest.raises(SystemExit, match="item 9b, tensor parallelism"):
+            port(args + _base(ckpt) + ["-save_name", "mp.json"] + flags)
+        return
+    got = port(args + _base(ckpt) + ["-save_name", "mp.json"] + flags)
+    assert got == port_vd
+    assert json.load(open(os.path.join(cfg.save_path, "mp.json"))) == got

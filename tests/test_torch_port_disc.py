@@ -511,17 +511,20 @@ def test_warm_start_takes_the_encoder_of_a_full_checkpoint(env):
     assert all(g["step"] == 0 for g in opt.param_groups)
 
 
+# as the JAX CLI: -data_parallel 2 in one process is a mesh the devices
+# cannot fill (make_mesh's ValueError); tensor parallelism is item 9b
 REFUSALS = [(["-model", "enc_dec_a"], "enc_only_a"),
             (["-mode", "vd_eval_val"], "vd_train"),
-            (["-data_parallel", "2"], "multi-GPU"),
-            (["-model_parallel", "2"], "multi-GPU")]
+            (["-data_parallel", "2"], r"mesh 2x1 != 1 devices available"),
+            (["-model_parallel", "2"], "item 9b, tensor parallelism")]
 
 
 @pytest.mark.parametrize("extra,message", REFUSALS,
                          ids=[" ".join(e) for e, _ in REFUSALS])
 def test_cli_refusals(env, tmp_path, extra, message):
     _, args, _, _, _ = env
-    with pytest.raises(SystemExit, match=message):
+    error = ValueError if extra[0] == "-data_parallel" else SystemExit
+    with pytest.raises(error, match=message):
         _train(args, str(tmp_path), extra, 1)
     kffn.enable(True)
 

@@ -626,9 +626,12 @@ REFUSALS = [
     ("gen", ["-start_path", ""], "start_path"),
     ("disc", ["-start_path", ""], "start_path"),
     ("gen", ["-mode", "vd_gen_val"], "vd_eval_val or vd_eval_test"),
-    ("gen", ["-data_parallel", "2"], "multi-GPU"),
-    ("disc", ["-model_parallel", "2"], "multi-GPU"),
-    ("gen", ["-distributed"], "multi-GPU"),
+    # message None: not refused; as the JAX CLI, in one process
+    # -data_parallel 2 runs as one rank (make_generation_mesh's None) and
+    # -distributed alone is a no-op
+    ("gen", ["-data_parallel", "2"], None),
+    ("disc", ["-model_parallel", "2"], "item 9b, tensor parallelism"),
+    ("gen", ["-distributed"], None),
 ]
 
 
@@ -636,10 +639,17 @@ REFUSALS = [
                          ids=[f"{k}{' '.join(e)}" for k, e, _ in REFUSALS])
 def test_cli_refusals(env, tmp_path, kind, extra, message):
     _, tcli, _, _ = KINDS[kind]
-    argv = _argv(env, kind, "vd_eval_val", str(tmp_path)) + extra
-    with pytest.raises(SystemExit, match=message):
-        tcli.main(argv, device="cpu")
-    kffn.enable(True)
+    argv = _argv(env, kind, "vd_eval_val", str(tmp_path))
+    try:
+        if message is not None:
+            with pytest.raises(SystemExit, match=message):
+                tcli.main(argv + extra, device="cpu")
+            return
+        got = tcli.main(argv + extra, device="cpu", max_batches=1)
+        assert got == tcli.main(argv, device="cpu", max_batches=1)
+        assert set(got) >= {"r@1", "mrr", "ndcg"}
+    finally:
+        kffn.enable(True)
 
 
 @pytest.mark.parametrize("kind", ["gen", "disc"])

@@ -47,7 +47,7 @@ def test_scan_covers_the_package():
     assert {"gstx_torch/train/optim.py", "gstx_torch/train/train_gen.py",
             "gstx_torch/cli/train_gen.py", "gstx_torch/core/checkpoint.py",
             "gstx_torch/data/loader.py", "gstx_torch/data/cc12m.py",
-            "gstx_torch/data/visdial.py"} <= names
+            "gstx_torch/data/visdial.py", "gstx_torch/core/mesh.py"} <= names
     assert {"gstx_torch/train/train_disc.py", "gstx_torch/cli/train_disc.py",
             "gstx_torch/models/heads.py", "gstx_torch/models/mlm.py",
             "gstx_torch/eval/attacks.py", "gstx_torch/eval/attack_eval.py",

@@ -95,15 +95,21 @@ def test_session_ends_on_eof_quit_exit_or_an_empty_line(env, end):
 
 def test_runtime_flags_and_the_device(env, monkeypatch):
     """-no_use_pallas turns the fused kernels' switch off (-use_pallas
-    back on); the multi-device flags are refused with item 9's message;
-    without a card the demo needs device="cpu" or GSTX_PLATFORM=cpu."""
+    back on); as the JAX CLI, -data_parallel 2 runs in the one process
+    (the same transcript) and -model_parallel 2 is refused, citing item
+    9b; without a card the demo needs device="cpu" or GSTX_PLATFORM=cpu."""
     quiet = dict(input_fn=lambda prompt: "", output_fn=lambda line: None)
     tinference.main(env + ["-no_use_pallas"], device="cpu", **quiet)
     assert not kffn.is_enabled()
     tinference.main(env + ["-use_pallas"], device="cpu", **quiet)
     assert kffn.is_enabled()
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        tinference.main(env + ["-data_parallel", "2"], device="cpu", **quiet)
+    short = env + ["-max_dec_len", "6"]
+    asked = ["is there a dog"]
+    assert _session(tinference.main, short + ["-data_parallel", "2"], asked,
+                    None, device="cpu") == \
+        _session(tinference.main, short, asked, None, device="cpu")
+    with pytest.raises(SystemExit, match="item 9b, tensor parallelism"):
+        tinference.main(env + ["-model_parallel", "2"], device="cpu", **quiet)
     with pytest.raises(SystemExit, match="start_path"):
         tinference.main(env + ["-start_path", ""], device="cpu", **quiet)
     if not torch.cuda.is_available():
