@@ -22,7 +22,9 @@
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
            5e-3 + 1e-4 * |plain|, also at phase 11's beam shape (B*K
-           128 rows).  Gradient rows for fused_ffn and
+           128 rows); quant_decode_attention at a rank's 6 heads under
+           -model_parallel 2 (B 96 and 128, M 293) and fused_attention at
+           96 x 6 x 256 x 256 x 64 (phase 15).  Gradient rows for fused_ffn and
            fused_dense_ln at phase 8's training shapes (18,432 text rows
            x 768, F 3,072; BiOutput-t 18,432 x 1,024 -> 768; 2,664 visual
            rows x 1,024), a rank's share of phase 14's two-rank step at
@@ -210,6 +212,41 @@
            round) of phase 7's, the log written once, scored sequences/s;
            (e) two ranks on the one card under nccl must raise.  Each
            part's wall time.
+  phase 15 tensor parallelism (-model_parallel 2, gstx_torch.models.
+           tensor_parallel) at full width on the one card: two ranks of
+           this script over gloo (NCCL takes one rank a card; gloo's
+           collectives are a host transport, not TP's speed), phase 6's
+           .ckpt without its EOS bias: (a) teacher-forced logits on 4
+           contexts of 256, f32 with TF32 off within TP_LOGIT_TOL of one
+           process's, a control whose row-parallel products skip their
+           all-reduce beyond it; in bf16 (and (c)'s int8 memory) the
+           group's relative error to the f32 logits within TP_BF16_RATIO
+           of one process's, the elementwise comparison beside it, and
+           one row-parallel product whose outputs differ from the f32
+           product rounded once in at most TP_ROUNDING_SHARE of them,
+           with a control that rounds each rank's partial to bf16 before
+           the all-reduce beyond it; (b)
+           greedy f32 dialogs from the engine (TP_IMAGES images, 2
+           rounds, 18 steps): the identical share and the first
+           divergence, and past it every token within TP_ARGMAX_TOL of
+           one process's teacher-forced argmax; (c) the bf16 engine over
+           the int8 memory with the decode and attention kernels on, one
+           round: quant_decode_attention layers x decode steps a rank, on
+           6 heads, fused_attention every attention, fused_ffn /
+           fused_dense_ln 0 (declined on a sharded site), tok/s beside one
+           process's, the collectives' share of a run with a sync around
+           each collective, peak memory, the build's peak; (d) train_gen
+           and train_disc, one dropout-free f32 step
+           each (TP_TRAIN_BATCH rows, lr DP_LR) against one process's
+           (loss within TRAIN_LOSS_TOL, every gathered parameter within
+           the bf16 tolerance), the generative one again with the
+           reference dropout, and a control whose copy-to-model backward
+           skips its all-reduce beyond it; (f) two greedy f32 turns of the
+           demo, the transcript one process's; (e) evaluate_gen
+           -model_parallel 2 on phase 7's first dialog, its first
+           TP_EVAL_OPTIONS options a round, rank 0's scores within
+           EVAL_SCORE_TOL["gen"] of phase 7's, the log written once; (g) -model_parallel 3 exits with JAX's
+           validate_model_parallel message.  Each part's wall time.
 
 The two profiled rounds of phases 4 and 5 come last: engine timings taken
 after a profiled round ran 26-50% slower.  Phases 6 to 13 write their
@@ -219,6 +256,12 @@ exits non-zero with no result; so does a machine without CUDA or a
 directory without gstx_torch.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-cards 4 2   # phase 14 (b), (d) over nccl
+    python3 chip_smoke.py --tp-cards 2 4   # phase 15 (a)-(e), (g) over
+                                           # nccl: 1 x 2 and 2 x 2, (c) at
+                                           # 96 images, (d) at 72 rows
+                                           # with a warm step
+    python3 chip_smoke.py --tp-cards 1     # phase 15 alone, one card
 """
 
 import contextlib
@@ -685,7 +728,9 @@ ATTENTION_SHAPES = [
     ("scoring self 96x12x18->18x64 causal", 96, 12, 18, 18, 64),
     ("scoring cross 96x12x18->293x64", 96, 12, 18, 293, 64),
     ("ragged 7x12x100->171x64", 7, 12, 100, 171, 64),
-    ("NaN tail 96x12x18->293x64", 96, 12, 18, 293, 64)]
+    ("NaN tail 96x12x18->293x64", 96, 12, 18, 293, 64),
+    # a rank's heads under -model_parallel 2 (phase 15)
+    ("tp rank text self 96x6x256->256x64", 96, 6, 256, 256, 64)]
 
 
 def attention_inputs(torch, randn, gen, label, b, h, lq, lk, dh):
@@ -744,14 +789,17 @@ def attention_rows(torch, F, kattn, randn, held):
 def decode_rows(torch, F, kdecode, gen, held):
     """quant_decode_attention at the decode steps' shapes: B=96, 12 heads
     of 64, memory M = 37 regions + the context bucket, padded slots
-    masked and zero in K/V; a ragged B; and phase 11's beam rows (32 x
-    K 4)."""
+    masked and zero in K/V; a ragged B; phase 11's beam rows (32 x K 4);
+    and a rank's 6 heads under -model_parallel 2 (phase 15), at B=96 and
+    at the beam's 128 rows."""
     name = "quant_decode_attention"
     dev = torch.device("cuda")
     rows = []
-    for b, m in ((96, 293), (96, 229), (96, 165), (7, 229), (128, 293)):
-        label = f"B={b} H=12 M={m} dh=64"
-        h, dh = 12, 64
+    for b, h, m in ((96, 12, 293), (96, 12, 229), (96, 12, 165),
+                    (7, 12, 229), (128, 12, 293), (96, 6, 293),
+                    (128, 6, 293)):
+        label = f"B={b} H={h} M={m} dh=64"
+        dh = 64
         # q with the K scale and 1/sqrt(dh) folded in, as the decoder makes
         # it: scores of order 1
         q = (torch.randn(b, h, 1, dh, generator=gen, device=dev) * 0.05
@@ -2814,7 +2862,7 @@ def rank_step(torch, counters, spec):
         f32 = common.parse_config(run["argv"] + ["-dtype", "float32"])
         dev = common.default_device("cuda")
         common.apply_runtime_flags(bf16, dev)
-        axis = mesh.training_data_parallel(bf16.data_parallel, dev)
+        axis = mesh.make_layout(bf16.data_parallel, 1, dev).dp
         dp = Timed(axis.group, axis.rank, axis.size, axis.device)
         ctrl = NoReduce(dp.group, dp.rank, dp.size, dp.device)
         cls = VisdialGenDataset if kind == "gen" else VisdialDiscDataset
@@ -2913,9 +2961,6 @@ def rank_pair(torch, counters, spec):
     except RuntimeError as e:
         return {"raised": str(e)}
     return {"raised": None, "backend": backend}
-
-
-RANK_TASKS = {"step": rank_step, "cli": rank_cli, "pair": rank_pair}
 
 
 def rank_main(spec_path):
@@ -3229,6 +3274,918 @@ def dp_phase(torch, counters, card, tmp, gen_argv, records6, eval_data,
     return counts
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: tensor parallelism across processes
+# ---------------------------------------------------------------------- #
+
+
+TP_DEGREE = 2
+TP_IMAGES = 8          # (b), and (c) on one card: the engine's batch
+TP_ROUNDS = 2
+TP_INT8_ROUNDS = 1     # (c): gloo's per-collective latency paces it
+TP_STEPS = 18
+# (d) on one card: rows a step, drawn from as many dialogs; under gloo
+# every activation all-reduce is staged through host memory, so the step
+# is a small one, timed cold
+TP_TRAIN_BATCH = 8
+# --tp-cards (nccl): (c) at the engine's batch (bench.py's 96 images) and
+# (d) at the trainers' (72 rows), each step timed again warm
+TP_CARDS_IMAGES = 96
+TP_CARDS_TRAIN_BATCH = 72
+# (a): f32 logits over the model group against one process's, max |d| /
+# max |one process|, TF32 off; (b): an argmax within this many logits
+TP_LOGIT_TOL = 1e-4
+TP_ARGMAX_TOL = 1e-4
+# (a), (c) in bf16: the group's relative error to the f32 logits over one
+# process's.  Elementwise, two bf16 models that round in another order
+# differ by as much as each differs from f32 (~1.4% of the largest logit
+# at random weights on an H100; ratios 1.034 and, over the int8 memory,
+# 1.088 there); a group that lost a reduction lands ~100x one process's
+# error (the control)
+TP_BF16_RATIO = 1.25
+# (a) in bf16, the rounding of one row-parallel product (the first one of
+# the model, on TP_ROUNDING_ROWS seeded rows): the share of its outputs
+# that differ from the f32 product rounded once to bf16.  Partials summed
+# in f32 and rounded once differ only where the order of the f32 sum
+# moves a value across a rounding boundary; a group that rounds each
+# rank's partial to bf16 before the sum (the control) rounds twice
+TP_ROUNDING_ROWS = 8192
+TP_ROUNDING_SHARE = 0.05
+# (e): phase 7's first dialog, the first options of each round (gloo's
+# host transport paces the scoring: ~17 sequences/s on one H100)
+TP_EVAL_OPTIONS = 20
+# (g): JAX's validate_model_parallel on the production configs at degree 3
+JAX_MP3_MESSAGE = ("model_parallel=3 does not divide v_num_attention_heads"
+                   "=8; pick a degree dividing every head count and "
+                   "intermediate size")
+
+
+def tp_peak(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+@contextlib.contextmanager
+def clocked_collectives(torch, clock):
+    """The model group's collectives (``ModelGroup.all_reduce`` /
+    ``all_gather`` / ``broadcast``) wrapped for the run inside: the device
+    synchronised before and after each one, its wall time added to
+    ``clock["seconds"]`` and one to ``clock["calls"]``.  The syncs stall
+    the stream, so the share read this way is that of a run with a sync
+    around each collective, not of the unclocked run."""
+    from gstx_torch.core.mesh import ModelGroup
+
+    names = ("all_reduce", "all_gather", "broadcast")
+    real = {n: getattr(ModelGroup, n) for n in names}
+
+    def timed(fn):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize(self.device)
+            clock["seconds"] += time.perf_counter() - t0
+            clock["calls"] += 1
+            return out
+        return run
+    clock.update(seconds=0.0, calls=0)
+    for n in names:
+        setattr(ModelGroup, n, timed(real[n]))
+    try:
+        yield clock
+    finally:
+        for n in names:
+            setattr(ModelGroup, n, real[n])
+
+
+def tp_logit_batch(torch, np, enc_cfg, dev):
+    """(a)'s fixed batch: 4 caption contexts of 256 and 20 decoder
+    tokens."""
+    b = make_batch(np, enc_cfg, 4, 256, 37)
+    rng = np.random.RandomState(15)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    dec = torch.from_numpy(rng.randint(1000, 20000, (4, 20))).to(dev)
+    return (t["enc_input_ids"], t["enc_image_feat"], t["enc_image_loc"],
+            t["enc_segments"], (t["enc_input_ids"] != 0).long(),
+            t["enc_image_mask"].long(), dec, torch.ones_like(dec))
+
+
+def tp_models(config, dev, tp, primary):
+    """The model group's shard of ``config``'s -start_path (every rank)
+    and one process's whole model (``primary`` only)."""
+    from gstx_torch.cli import common
+
+    def build(group):
+        return common.load_params(common.build_model(config, device=dev,
+                                                     tp=group),
+                                  config.start_path)
+    return build(tp), (build(None) if primary else None)
+
+
+def tp_logits_part(torch, np, dev, primary, models, res, ref):
+    """(a): teacher-forced logits, f32 then bf16, against one process's;
+    the control whose row-parallel products skip their all-reduce."""
+    from gstx_torch.models import tensor_parallel as tpar
+
+    model, one = models
+    args = tp_logit_batch(torch, np, model.enc_config, dev)
+    with torch.no_grad():
+        got = model.full_logits(model.score(*args))
+        real = tpar.RowParallelLinear.forward
+        tpar.RowParallelLinear.forward = lambda self, x: \
+            torch.nn.functional.linear(x, self.weight, self.bias)
+        try:
+            ctrl = model.full_logits(model.score(*args))
+        finally:
+            tpar.RowParallelLinear.forward = real
+        if primary:
+            want = one.score(*args)
+            scale = float(want.abs().max())
+            res["a_f32"] = float((got - want).abs().max()) / scale
+            res["a_control"] = float((ctrl - want).abs().max()) / scale
+            ref["f32"] = want
+        del got, ctrl
+
+
+def tp_bf16_logits(torch, np, dev, primary, models, res, ref):
+    """(a) in bf16 and (c)'s int8 memory: the precast models' logits on
+    (a)'s batch, each model's relative error to the f32 one process's
+    logits (the group's within TP_BF16_RATIO of one process's), beside the
+    elementwise comparison with one process's at ABS_TOL + REL_TOL |p|;
+    over the int8 memory (teacher-forced through decode_logits_cached)
+    also max |d| / max |f32| against INT8_LOGIT_TOL."""
+    from gstx_torch.models import decoder as tdecoder
+
+    model, one = models
+    args = tp_logit_batch(torch, np, model.enc_config, dev)
+
+    def int8_logits(m):
+        mem, mask = m.decode_prepare(*args[:6])
+        mem = tdecoder.quantize_memory_kv(mem, mask, m.dtype)
+        return m.full_logits(m.decode_logits_cached(args[6], args[7], mem,
+                                                    mask))
+    with torch.no_grad():
+        with rounded_partials(torch):
+            twice = model.full_logits(model.score(*args))
+        if primary:
+            res["a_twice_vs_f32"] = rel_err(twice, ref["f32"])
+        del twice
+        for tag, fn in (("a", lambda m: m.full_logits(m.score(*args))),
+                        ("c", int8_logits)):
+            got = fn(model)
+            if not primary:
+                continue
+            want = fn(one)
+            lim = ABS_TOL + REL_TOL * want.abs()
+            d = (got - want).abs()
+            res[f"{tag}_bf16_over"] = int((d > lim).sum())
+            res[f"{tag}_bf16_worst"] = float((d / lim).max())
+            res[f"{tag}_group_vs_f32"] = rel_err(got, ref["f32"])
+            res[f"{tag}_one_vs_f32"] = rel_err(want, ref["f32"])
+            res[f"{tag}_group_max_vs_f32"] = float(
+                (got - ref["f32"]).abs().max() / ref["f32"].abs().max())
+
+
+@contextlib.contextmanager
+def rounded_partials(torch):
+    """The control of the bf16 checks: every row-parallel product rounds
+    its rank's partial to the input's dtype before the all-reduce, the
+    double rounding that summing the partials in f32 avoids."""
+    from gstx_torch.models import tensor_parallel as tpar
+
+    real = tpar._partial_product
+    tpar._partial_product = lambda x, w: real(x, w).to(x.dtype).float()
+    try:
+        yield
+    finally:
+        tpar._partial_product = real
+
+
+def tp_rounding_part(torch, dev, primary, models, res):
+    """(a) in bf16, one row-parallel product alone: the model's first
+    :class:`RowParallelLinear` on TP_ROUNDING_ROWS seeded bf16 rows (the
+    rank's slice of their features), and the same product under
+    :func:`rounded_partials`; each output's share of elements that differ
+    from the f32 product of the whole weight rounded once to bf16, beside
+    one process's bf16 ``nn.Linear`` on the whole rows."""
+    from gstx_torch.models import tensor_parallel as tpar
+
+    model, one = models
+    name, mod = next((n, m) for n, m in model.named_modules()
+                     if isinstance(m, tpar.RowParallelLinear))
+    per = mod.weight.shape[1]
+    x = torch.randn(TP_ROUNDING_ROWS, per * mod.tp.size, device=dev,
+                    generator=torch.Generator(dev).manual_seed(15)
+                    ).to(torch.bfloat16)
+    mine = x[:, mod.tp.rank * per:(mod.tp.rank + 1) * per]
+    with torch.no_grad():
+        got = mod(mine)
+        with rounded_partials(torch):
+            twice = mod(mine)
+        if not primary:
+            return
+        full = dict(one.named_modules())[name]
+        once = (x.float() @ full.weight.float().t()
+                + full.bias.float()).to(torch.bfloat16)
+        res["a_rounding"] = dict(
+            layer=name, shape=[TP_ROUNDING_ROWS, per * mod.tp.size,
+                               mod.weight.shape[0]],
+            group=float((got != once).float().mean()),
+            control=float((twice != once).float().mean()),
+            one=float((full(x) != once).float().mean()))
+
+
+def tp_argmax_check(torch, one, out, batch, dev):
+    """(b)'s fallback when the tokens differ: every token the model group
+    chose is within TP_ARGMAX_TOL of the largest of one process's
+    teacher-forced logits, each utterance scored in the context the
+    model group built (up to its first EOS).  Returns (tokens checked,
+    the worst gap)."""
+    from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
+    from gstx_torch.decode.dialog_engine import DialogState, append_utterance
+
+    ids = torch.from_numpy(batch["enc_input_ids"]).to(dev).clone()
+    state = DialogState(ids, torch.from_numpy(batch["enc_segments"]).to(
+        dev).clone(), (ids != PAD_ID).sum(-1), torch.zeros(
+        ids.shape[0], dtype=torch.bool, device=dev))
+    image = [torch.from_numpy(batch[k]).to(dev) for k in
+             ("enc_image_feat", "enc_image_loc", "enc_image_mask")]
+    checked, worst = 0, 0.0
+    for r in range(out.questions.shape[0]):
+        for kind in ("q", "a"):
+            utt = (out.questions if kind == "q" else out.answers)[r]
+            att = (state.enc_input_ids != PAD_ID).long()
+            mem, mask = one.decode_prepare(state.enc_input_ids, image[0],
+                                           image[1], state.enc_segments,
+                                           att, image[2])
+            inp = torch.cat([torch.full_like(utt[:, :1], CLS_ID),
+                             utt[:, :-1]], 1)
+            inp = torch.where(inp == SEP_ID, PAD_ID, inp)
+            logits = one.decode_logits_cached(inp, torch.ones_like(inp), mem,
+                                              mask)
+            chosen = logits.gather(-1, utt[..., None])[..., 0]
+            gap = logits.max(-1).values - chosen
+            live = (torch.cumsum((utt == SEP_ID).long(), 1)
+                    - (utt == SEP_ID).long()) == 0
+            live &= utt != PAD_ID
+            checked += int(live.sum())
+            worst = max(worst, float(torch.where(live, gap, 0.0).max()))
+            if kind == "q":
+                state, _ = append_utterance(state, utt, (utt != PAD_ID).sum(
+                    -1), segment=0, write_segments=False)
+            else:
+                wo = torch.where(utt == SEP_ID, PAD_ID, utt)
+                state, _ = append_utterance(state, wo, (wo != PAD_ID).sum(-1),
+                                            segment=1, write_segments=True)
+    return checked, worst
+
+
+def tp_engine_part(torch, np, dev, primary, models, res):
+    """(b): greedy f32 dialogs over the model group against one
+    process's."""
+    from gstx_torch.decode.dialog_engine import make_dialog_engine
+    from gstx_torch.decode.sampler import DecodeSettings
+
+    model, one = models
+    batch = make_batch(np, model.enc_config, TP_IMAGES, 256, 37)
+    greedy = DecodeSettings(max_steps=TP_STEPS, top_k=1,
+                            ngram_blocking_size=0)
+    run = make_dialog_engine(num_rounds=TP_ROUNDS, q_settings=greedy,
+                             a_settings=greedy, dtype=torch.float32,
+                             device=dev)
+    with torch.no_grad():
+        if primary:
+            want = run(one, one, batch, torch.Generator(dev).manual_seed(0))
+        got = run(model, model, batch, torch.Generator(dev).manual_seed(0))
+        if not primary:
+            return
+        pairs = [(g, w) for g, w in ((got.questions, want.questions),
+                                     (got.answers, want.answers))]
+        same = sum(int((g == w).all(-1).sum()) for g, w in pairs)
+        total = sum(g.shape[0] * g.shape[1] for g, _ in pairs)
+        first = None
+        for r in range(TP_ROUNDS):
+            for name, g, w in (("question", got.questions[r],
+                                want.questions[r]),
+                               ("answer", got.answers[r], want.answers[r])):
+                bad = (g != w).any(-1).nonzero()
+                if first is None and len(bad):
+                    i = int(bad[0])
+                    first = dict(round=r, utterance=name, row=i,
+                                 group=g[i].tolist(), one=w[i].tolist())
+        res["b_same"], res["b_total"], res["b_first"] = same, total, first
+        res["b_tokens"] = int(sum(int((g != 0).sum()) for g, _ in pairs))
+        if first is not None:
+            res["b_checked"], res["b_worst"] = tp_argmax_check(
+                torch, one, got, batch, dev)
+
+
+def tp_int8_part(torch, np, counters, kattn, kdecode, dev, tp, primary,
+                 models, res, images):
+    """(c): the bf16 engine over the int8 memory with the decode and the
+    attention kernels on, one round of ``images`` images: launches
+    against the decode steps, tok/s, the collectives' share of the wall
+    time (a second run under :func:`clocked_collectives`), peak memory,
+    and one process's tok/s.  (The teacher-forced logits over the int8
+    memory are :func:`tp_bf16_logits`'.)"""
+    from gstx_torch.decode.dialog_engine import make_dialog_engine
+    from gstx_torch.decode.sampler import DecodeSettings
+    from gstx_torch.models.encdec import GSTVisualDialog
+
+    model, one = models
+    batch = make_batch(np, model.enc_config, images, 256, 37)
+    run = make_dialog_engine(
+        num_rounds=TP_INT8_ROUNDS,
+        q_settings=DecodeSettings(max_steps=TP_STEPS, ngram_blocking_size=4,
+                                  fused_sampler=True),
+        a_settings=DecodeSettings(max_steps=TP_STEPS, ngram_blocking_size=0,
+                                  fused_sampler=True),
+        dtype=torch.bfloat16, quantize_memory=True, device=dev)
+    steps = [0]
+    real_step = GSTVisualDialog.decode_step
+
+    def counted(self, *a, **kw):
+        steps[0] += 1
+        return real_step(self, *a, **kw)
+    kdecode.enable_kernel()
+    kattn.enable()
+    GSTVisualDialog.decode_step = counted
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters.reset()
+            t0 = time.perf_counter()
+            out = run(model, model, batch,
+                      torch.Generator(dev).manual_seed(2))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = counters.read()
+            res["c_counts"], res["c_steps"] = counts, steps[0]
+            res["c_layers"] = len(model.dec.layers)
+            # fused_attention: every encoder attention of both encoder
+            # passes a round, and the answer scoring's decoder
+            # self-attentions (the int8 cross-attention has its own path)
+            enc = model.enc_config
+            res["c_attention_per_round"] = 2 * (
+                enc.num_hidden_layers + enc.v_num_hidden_layers
+                + 2 * len(enc.v_biattention_id)) + len(model.dec.layers)
+            res["c_wall"] = wall
+            res["c_tokens"] = int((out.questions != 0).sum()
+                                  + (out.answers != 0).sum())
+            res["c_peak_gib"] = tp_peak(torch)
+            if tp is not None:
+                clock = {}
+                with clocked_collectives(torch, clock):
+                    t0 = time.perf_counter()
+                    run(model, model, batch,
+                        torch.Generator(dev).manual_seed(2))
+                    torch.cuda.synchronize()
+                res["c_clocked_wall"] = time.perf_counter() - t0
+                res["c_collective_s"] = clock["seconds"]
+                res["c_collectives"] = clock["calls"]
+            if primary:
+                counters.reset()
+                t0 = time.perf_counter()
+                ref = run(one, one, batch, torch.Generator(dev).manual_seed(2))
+                torch.cuda.synchronize()
+                res["c_one_wall"] = time.perf_counter() - t0
+                res["c_one_tokens"] = int((ref.questions != 0).sum()
+                                          + (ref.answers != 0).sum())
+    finally:
+        GSTVisualDialog.decode_step = real_step
+        kdecode.enable_kernel(False)
+        kattn.enable(False)
+
+
+def tp_step(torch, config, dev, kind, batch, axes, gather=True,
+            warm=False):
+    """One step of the ``kind`` trainer over ``axes`` (None: one process)
+    from -start_path: (loss, the updated parameters on the device, the
+    step's wall seconds, the step's peak GiB, a dict of the build's peak
+    GiB (the model built and loaded, before any step), the build and
+    gather seconds and, with ``warm``, a second step's wall seconds and
+    peak GiB).  The parameters are the full ones after the first step,
+    gathered over the model group, or with ``gather=False`` this rank's
+    shards."""
+    from gstx_torch.train import train_disc, train_gen
+
+    tp = None if axes is None else axes.tp
+    dp = None if axes is None else axes.dp
+    # the trainers' recomputation (-remat_policy small): a recomputed
+    # region runs its forward all-reduces again inside the backward
+    remat = config.remat_policy if config.remat else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    if kind == "gen":
+        model, opt = train_gen.init_model_and_state(config, 100, dev, tp=tp)
+        train_gen.load_start_checkpoint(config, model, opt)
+        step = train_gen.make_train_step(model, opt, config.batch_size,
+                                         remat=remat, dp=dp)
+    else:
+        model, opt = train_gen.init_model_and_state(
+            config, 100, dev, use_decoder=False,
+            warmup_steps=train_disc.DISC_WARMUP_STEPS, tp=tp)
+        train_disc.load_start_checkpoint(config, model, opt)
+        step = train_disc.make_disc_train_step(model, opt, config, remat,
+                                               dp)
+    parts = dict(build_peak_gib=tp_peak(torch))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(batch, train_gen.iteration_generator(config.seed, 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = tp_peak(torch)
+    loss = float(out if kind == "gen" else out["loss"])
+    t1 = time.perf_counter()
+    own = model.tp is None or not gather
+    # copies: a warm step updates the parameters in place
+    params = {k: v.detach().to(dev, torch.float32, copy=True)
+              for k, v in (model.state_dict() if own
+                           else model.full_state_dict()).items()}
+    parts.update(build_s=t0 - t_build, gather_s=time.perf_counter() - t1)
+    if warm:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(batch, train_gen.iteration_generator(config.seed, 1))
+        torch.cuda.synchronize()
+        parts.update(warm_s=time.perf_counter() - t0,
+                     warm_peak_gib=tp_peak(torch))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return loss, params, wall, peak, parts
+
+
+def tp_train_part(torch, spec, dev, axes, primary, res):
+    """(d): each trainer's f32 step over the layout against one process's
+    (dropout-free: the model JSONs' rates 0 and the fusion's and the
+    heads' fixed 0.1 off), then the generative one with the reference
+    dropout, and the control whose copy-to-model backward skips its
+    all-reduce."""
+    from gstx_torch.cli import common
+    from gstx_torch.core import mesh
+    from gstx_torch.data.loader import collate
+    from gstx_torch.data.tokenizer import BertTokenizer
+    from gstx_torch.data.visdial import VisdialDiscDataset, VisdialGenDataset
+    from gstx_torch.models import encdec, heads
+    from gstx_torch.models import tensor_parallel as tpar
+
+    fixed = encdec.FUSION_DROPOUT, heads.POOLED_DROPOUT
+    rows, warm = spec["train_batch"], spec["warm"]
+    for run in spec["train_runs"]:
+        kind, tag = run["kind"], run["tag"]
+        config = common.parse_config(run["argv"] + ["-dtype", "float32"])
+        cls = VisdialGenDataset if kind == "gen" else VisdialDiscDataset
+        ds = cls(config, BertTokenizer(vocab_path=config.vocab_path),
+                 mode="vd_train")
+        n = rows // axes.data_size
+        d = axes.data_rank
+
+        def batch(items):
+            return collate([ds.__getitem__(i, seed=i) for i in items])
+        dropout = run.get("dropout", False)
+        encdec.FUSION_DROPOUT, heads.POOLED_DROPOUT = \
+            fixed if dropout else (0.0, 0.0)
+        try:
+            if primary:
+                ref = tp_step(torch, config, dev, kind, batch(range(rows)),
+                              None, warm=warm)
+            got = tp_step(torch, config, dev, kind,
+                          batch(range(d * n, (d + 1) * n)), axes, warm=warm)
+            if run.get("control"):
+                # past the limit on rank 0's own shards already: no gather
+                real = tpar._CopyToModel.backward
+                tpar._CopyToModel.backward = staticmethod(
+                    lambda ctx, grad: (grad, None))
+                try:
+                    ctrl = tp_step(torch, config, dev, kind,
+                                   batch(range(d * n, (d + 1) * n)), axes,
+                                   gather=False)
+                finally:
+                    tpar._CopyToModel.backward = real
+        finally:
+            encdec.FUSION_DROPOUT, heads.POOLED_DROPOUT = fixed
+        out = dict(loss=got[0], step_s=got[2], peak_gib=got[3],
+                   parts=got[4])
+        if primary:
+            over, worst = param_check(got[1], ref[1])
+            out.update(ref_loss=ref[0], ref_step_s=ref[2],
+                       ref_peak_gib=ref[3], ref_parts=ref[4], over=over,
+                       worst=worst,
+                       params=sum(v.numel() for v in ref[1].values()))
+            if run.get("control"):
+                out["control_over"], out["control_worst"] = param_check(
+                    ctrl[1], mesh.shard_state_dict(ref[1], axes.tp.size,
+                                                   axes.tp.rank))
+            del ref
+        del got
+        res[f"d_{tag}"] = out
+
+
+def tp_demo_part(spec, res, primary):
+    """(f): two scripted greedy f32 turns of the demo over the model
+    group, and the same in one process (rank 0; the others idle)."""
+    from gstx_torch.cli import inference
+
+    for tag, extra in (("one", []), ("group", ["-distributed",
+                                               "-model_parallel",
+                                               str(TP_DEGREE)])):
+        lines = []
+        asked = iter(DEMO_TURNS[:2])
+        inference.main(spec["demo_argv"] + extra,
+                       input_fn=lambda prompt: next(asked),
+                       output_fn=lines.append, max_turns=2, device="cuda")
+        if primary:
+            res[f"f_{tag}"] = lines
+
+
+def rank_tp(torch, counters, spec):
+    """Phase 15 on one rank: the ``spec["dp"] x spec["mp"]`` layout over
+    the launched group; (a)-(c) on the -start_path of ``spec["argv"]``,
+    (d) on ``spec["train_runs"]``, (f) when ``spec["demo_argv"]`` is
+    given, then (e) on ``spec["eval_argv"]``.  The global rank 0 also
+    computes each one-process reference."""
+    import numpy as np
+
+    from gstx_torch.cli import common
+    from gstx_torch.core import mesh
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.models.encdec import precast_
+
+    config = common.parse_config(spec["argv"])
+    dev = common.default_device("cuda")
+    common.apply_runtime_flags(config.replace(distributed=True), dev)
+    axes = mesh.make_groups(spec["dp"], spec["mp"], dev)
+    primary = mesh.process_index() == 0
+    res = {"device": str(dev), "data_rank": axes.data_rank,
+           "model_rank": axes.model_rank}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    models = tp_models(config.replace(dtype="float32"), dev, axes.tp,
+                       primary)
+    # every rank builds the whole model and loads the whole file before it
+    # keeps its shard (rank 0 also holds one process's model)
+    res["build_peak_gib"] = tp_peak(torch)
+    ref = {}
+    tp_logits_part(torch, np, dev, primary, models, res, ref)
+    tp_engine_part(torch, np, dev, primary, models, res)
+    for m in models:
+        if m is not None:
+            precast_(m)
+    tp_rounding_part(torch, dev, primary, models, res)
+    tp_bf16_logits(torch, np, dev, primary, models, res, ref)
+    ref.clear()
+    tp_int8_part(torch, np, counters, kattn, kdecode, dev, axes.tp, primary,
+                 models, res, spec["images"])
+    del models
+    torch.cuda.empty_cache()
+    res["abc_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_train_part(torch, spec, dev, axes, primary, res)
+    res["d_s"] = time.perf_counter() - t0
+    if spec.get("demo_argv"):
+        t0 = time.perf_counter()
+        tp_demo_part(spec, res, primary)
+        res["f_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_eval_rank(torch, counters, spec, primary, res)
+    res["e_s"] = time.perf_counter() - t0
+    return res
+
+
+def tp_eval_inputs(tmp):
+    """(e)'s val set: the first dialog of phase 7's, scored at
+    TP_EVAL_OPTIONS options a round.  The dataset takes a round's ground
+    truth and then the other options in order, as many as -num_options
+    asks, and a sequence's score depends on its context and its option
+    alone: its scores are phase 7's first TP_EVAL_OPTIONS of each round
+    of that dialog.  Beside phase 7's files."""
+    flags = eval_flags(tmp)
+    val = json.load(open(os.path.join(tmp, "val.json")))
+    val["data"]["dialogs"] = val["data"]["dialogs"][:1]
+    path = os.path.join(tmp, "val_one.json")
+    json.dump(val, open(path, "w"))
+    out = list(flags)
+    out[out.index("-visdial_processed_val") + 1] = path
+    out[out.index("-num_options") + 1] = str(TP_EVAL_OPTIONS)
+    return out
+
+
+def tp_report(tag, card, ranks, spec):
+    """Log and check phase 15's (a)-(d) and (f) from the ranks' results;
+    returns each rank's (c) launch counts."""
+    r0 = ranks[0]
+    each = ", ".join(f"rank {i} on {r['device']} (data {r['data_rank']}, "
+                     f"model {r['model_rank']})" for i, r in enumerate(ranks))
+    log(f"[{tag}] {spec['dp']} x {spec['mp']} (data x model): {each}; on "
+        f"{card}")
+    log(f"[{tag} a] teacher-forced logits, 4 x 256 contexts, 20 tokens: f32 "
+        f"max |group - one| / max |one| {r0['a_f32']:.3g} (limit "
+        f"{TP_LOGIT_TOL}); control without the row-parallel all-reduce "
+        f"{r0['a_control']:.3g}")
+    ok = r0["a_f32"] <= TP_LOGIT_TOL
+    rnd = r0["a_rounding"]
+    log(f"[{tag} a] bf16 rounding of one row-parallel product "
+        f"({rnd['layer']}, {' x '.join(map(str, rnd['shape']))}): share "
+        f"of outputs that differ from the f32 product rounded once: the "
+        f"group's {rnd['group']:.4g} (limit {TP_ROUNDING_SHARE}), one "
+        f"process's nn.Linear {rnd['one']:.4g}; control with each rank's "
+        f"partial rounded to bf16 before the all-reduce {rnd['control']:.4g}")
+    ok &= rnd["group"] <= TP_ROUNDING_SHARE
+    if rnd["control"] <= TP_ROUNDING_SHARE:
+        raise AssertionError(f"{tag} a: the rounding control passes: blind "
+                             "check")
+    log(f"[{tag} a] the same control on the bf16 logits (a reading, no "
+        f"limit): relative error to one process's f32 "
+        f"{r0['a_twice_vs_f32']:.4g}, ratio "
+        f"{r0['a_twice_vs_f32'] / r0['a_one_vs_f32']:.4f} to one process's")
+    for part, what in (("a", "bf16"), ("c", "bf16 over the int8 memory")):
+        ratio = r0[f"{part}_group_vs_f32"] / r0[f"{part}_one_vs_f32"]
+        log(f"[{tag} {part}] {what}, relative error to one process's f32 "
+            f"logits: the group's {r0[f'{part}_group_vs_f32']:.4g}, one "
+            f"process's {r0[f'{part}_one_vs_f32']:.4g} (ratio {ratio:.4f}, "
+            f"limit {TP_BF16_RATIO}); the group's max |d| / max |f32| "
+            f"{r0[f'{part}_group_max_vs_f32']:.4g}; elementwise against one "
+            f"process's: {r0[f'{part}_bf16_over']} beyond {ABS_TOL} + "
+            f"{REL_TOL}|p| (worst {r0[f'{part}_bf16_worst']:.3g} of it)")
+        ok &= ratio <= TP_BF16_RATIO
+    ok &= r0["c_group_max_vs_f32"] <= INT8_LOGIT_TOL
+    if r0["a_control"] <= TP_LOGIT_TOL:
+        raise AssertionError(f"{tag} a: the control passes: blind check")
+    if "b_same" in r0:
+        msg = (f"[{tag} b] greedy f32, {TP_IMAGES} images x {TP_ROUNDS} "
+               f"rounds, {TP_STEPS} steps: {r0['b_same']} of "
+               f"{r0['b_total']} utterances identical to one process's "
+               f"({r0['b_tokens']} tokens); first divergence "
+               f"{json.dumps(r0['b_first'])}")
+        if r0["b_first"] is not None:
+            msg += (f"; the group's {r0['b_checked']} tokens against one "
+                    f"process's teacher-forced logits: largest gap to the "
+                    f"argmax {r0['b_worst']:.3g} (limit {TP_ARGMAX_TOL})")
+            ok &= r0["b_worst"] <= TP_ARGMAX_TOL
+        log(msg)
+    layers = r0["c_layers"]
+    held = ", with one process's model"
+    for i, r in enumerate(ranks):
+        want_q = layers * r["c_steps"]
+        rate = r["c_tokens"] / r["c_wall"]
+        share = r.get("c_collective_s", 0.0) / r.get("c_clocked_wall", 1.0)
+        log(f"[{tag} c] rank {i}: int8 memory, decode and attention "
+            f"kernels on, bf16, {spec['images']} images x "
+            f"{TP_INT8_ROUNDS} round: "
+            f"launches {r['c_counts']} over {r['c_steps']} decode steps "
+            f"({layers} layers: quant_decode_attention {want_q} implied); "
+            f"{r['c_tokens']} tokens in {r['c_wall']:.3f} s = {rate:.1f} "
+            f"tok/s; collectives {r.get('c_collectives', 0)} calls, "
+            f"{r.get('c_collective_s', 0.0):.3f} s of a "
+            f"{r.get('c_clocked_wall', 0.0):.3f} s run with a sync around "
+            f"each collective ({share:.3f}); peak {r['c_peak_gib']:.2f} "
+            f"GiB; the build's peak (whole model built and loaded, then "
+            f"sharded{held if i == 0 else ''}) {r['build_peak_gib']:.2f} "
+            f"GiB")
+        # the fused FFN / dense_ln kernels decline every sharded site
+        check_launches(f"{tag} c rank {i}", r["c_counts"], dict(
+            {k: 0 for k in SOURCES}, quant_decode_attention=want_q,
+            fused_attention=r["c_attention_per_round"] * TP_INT8_ROUNDS))
+    log(f"[{tag} c] one process: {r0['c_one_tokens']} tokens in "
+        f"{r0['c_one_wall']:.3f} s = "
+        f"{r0['c_one_tokens'] / r0['c_one_wall']:.1f} tok/s")
+    rows = spec["train_batch"]
+    for run in spec["train_runs"]:
+        key = f"d_{run['tag']}"
+        d = r0[key]
+        err = abs(d["loss"] - d["ref_loss"]) / abs(d["ref_loss"])
+        msg = (f"[{tag} d {run['tag']}] f32, {rows} rows, lr "
+               f"{DP_LR}: loss {d['loss']:.7f} against one process's "
+               f"{d['ref_loss']:.7f} (relative {err:.3g}, limit "
+               f"{TRAIN_LOSS_TOL}); parameters beyond {ABS_TOL} + "
+               f"{REL_TOL}|p|: {d['over']} of {d['params']} (worst "
+               f"{d['worst']:.3g}); first step {d['step_s'] * 1e3:.1f} ms "
+               f"({rows / d['step_s']:.1f} examples/s) against one "
+               f"process's {d['ref_step_s'] * 1e3:.1f} ms")
+        if spec["warm"]:
+            w, rw = d["parts"]["warm_s"], d["ref_parts"]["warm_s"]
+            msg += (f"; warm step {w * 1e3:.1f} ms ({rows / w:.1f} "
+                    f"examples/s) against one process's {rw * 1e3:.1f} ms "
+                    f"({rows / rw:.1f}), ratio {w / rw:.3f}; warm peak "
+                    f"{[round(r[key]['parts']['warm_peak_gib'], 2) for r in ranks]}"
+                    f" GiB a rank, one process "
+                    f"{d['ref_parts']['warm_peak_gib']:.2f}")
+        msg += (f"; first step's peak "
+                f"{[round(r[key]['peak_gib'], 2) for r in ranks]} GiB a "
+                f"rank, one process {d['ref_peak_gib']:.2f}; the build's "
+                f"peak (whole model built and loaded, then sharded) "
+                f"{[round(r[key]['parts']['build_peak_gib'], 2) for r in ranks]}"
+                f" GiB a rank, one process "
+                f"{d['ref_parts']['build_peak_gib']:.2f}; rank 0's build and "
+                f"load {d['parts']['build_s']:.2f} s, gather "
+                f"{d['parts']['gather_s']:.2f} s")
+        if "control_over" in d:
+            msg += (f"; control without the copy's backward all-reduce: "
+                    f"{d['control_over']} of rank 0's shards beyond (worst "
+                    f"{d['control_worst']:.3g})")
+            if d["control_over"] == 0:
+                raise AssertionError(f"{tag} d: the control passes: blind "
+                                     "check")
+        log(msg)
+        ok &= err <= TRAIN_LOSS_TOL and d["over"] == 0
+    if "f_one" in r0:
+        log(f"[{tag} f] demo, 2 greedy f32 turns: one process "
+            f"{r0['f_one']}; the model group {r0['f_group']}")
+        ok &= r0["f_one"] == r0["f_group"] and len(r0["f_one"]) == 4
+    log(f"[{tag}] (a)-(c) {r0['abc_s']:.1f} s, (d) {r0['d_s']:.1f} s"
+        + (f", (f) {r0['f_s']:.1f} s" if "f_s" in r0 else "")
+        + f", (e) {r0['e_s']:.1f} s")
+    if not ok:
+        raise AssertionError(f"{tag}: a check failed (see above)")
+    return [r["c_counts"] for r in ranks]
+
+
+def without_flags(argv, names):
+    """``argv`` without each of ``names`` and the value after it."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in names:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def tp_spec(tmp, train_flags, disc_flags, dp, demo=True, images=TP_IMAGES,
+            train_batch=TP_TRAIN_BATCH, warm=False):
+    """Phase 15's rank spec on phase 6-9's inputs for ``dp`` replicas,
+    (c) at ``images`` images, (d) at ``train_batch`` rows (``warm``: each
+    step timed again).  The dropout step runs with one replica only: the
+    replicas of a data axis draw their own masks (train_gen.rank_seed),
+    so a step across them equals one process's only dropout-free."""
+    common, teacher = train_flags
+    disc_common, dense = disc_flags
+    lr = ["-lr", DP_LR, "-image_lr", DP_LR, "-min_lr", DP_LR,
+          "-batch_size", str(train_batch), "-distributed",
+          "-model_parallel", str(TP_DEGREE)]
+    demo_ckpt = os.path.join(tmp, "tp_demo.ckpt")
+    spec = {"task": "tp", "mp": TP_DEGREE, "dp": dp, "images": images,
+            "train_batch": train_batch, "warm": warm,
+            "argv": ["-vocab_path", os.path.join(tmp, "vocab.txt"),
+                     "-start_path", demo_ckpt],
+            "train_runs": [
+                {"kind": "gen", "tag": "train_gen", "control": True,
+                 "argv": common + teacher + lr},
+                {"kind": "disc", "tag": "train_disc",
+                 "argv": disc_common + dense + lr}]}
+    if dp == 1:
+        # the production configs' dropout
+        spec["train_runs"].append(
+            {"kind": "gen", "tag": "train_gen dropout", "dropout": True,
+             "argv": without_flags(common + teacher + lr,
+                                   ("-model_enc_config",
+                                    "-model_dec_config"))})
+    if demo:
+        spec["demo_argv"] = eval_flags(tmp) + [
+            "-vocab_path", os.path.join(tmp, "vocab.txt"), "-start_path",
+            demo_ckpt, "-top_k", "1", "-max_dec_len", "18", "-dtype",
+            "float32"]
+    return spec, demo_ckpt
+
+
+def tp_eval_argv(tmp, ckpts):
+    """(e)'s run: evaluate_gen -model_parallel on :func:`tp_eval_inputs`
+    with phase 6's .ckpt, its log under ``tmp``/tp_eval."""
+    return tp_eval_inputs(tmp) + [
+        "-vocab_path", os.path.join(tmp, "vocab.txt"), "-start_path",
+        ckpts["full"], "-use_pallas", "-mode", "vd_eval_val", "-save_path",
+        os.path.join(tmp, "tp_eval"), "-distributed", "-model_parallel",
+        str(TP_DEGREE)]
+
+
+def tp_eval_rank(torch, counters, spec, primary, res):
+    """(e) on one rank, in the launched group: ``spec["eval_argv"]``'s
+    evaluate_gen with the counters set to 0 just before and read just
+    after; rank 0's gathered scores and batch loop."""
+    from gstx_torch.cli import evaluate_gen
+    from gstx_torch.eval import rank_gen
+    from gstx_torch.kernels import ffn as kffn
+
+    scores, stats = [], {}
+    torch.cuda.synchronize()
+    counters.reset()
+    with recording_scores(rank_gen, scores):
+        res["e_metrics"] = evaluate_gen.main(
+            spec["eval_argv"], chunk_size=GEN_CHUNK, device="cuda",
+            stats_out=stats)
+    torch.cuda.synchronize()
+    kffn.enable(True)
+    res["e_counts"] = counters.read()
+    res["e_loop_s"] = stats["loop_seconds"]
+    if primary:
+        res["e_scores"] = [float(x) for a in scores for x in a]
+
+
+def tp_eval_check(torch, card, tmp, ranks, want, tag):
+    """(e): rank 0's scores against ``want`` ([ROUNDS, TP_EVAL_OPTIONS],
+    one process's; centred per round), the log written once, no kernel
+    launched (the fused ones decline a sharded site).  Returns each rank's
+    launch counts."""
+    n = ROUNDS * TP_EVAL_OPTIONS
+    r0 = ranks[0]
+    got = torch.tensor(r0["e_scores"]).reshape(ROUNDS, TP_EVAL_OPTIONS)
+    err = max(centred_err(torch, g, w) for g, w in zip(got, want))
+    out = os.path.join(tmp, "tp_eval")
+    files = sorted(os.listdir(out))
+    loop = r0["e_loop_s"]
+    log(f"[{tag}] evaluate_gen -model_parallel {TP_DEGREE}, phase 7's "
+        f"first dialog, {TP_EVAL_OPTIONS} options a round ({n} sequences):"
+        f" rank 0's scores against one process's, centred per round: "
+        f"largest relative error {err:.4g} (limit {EVAL_SCORE_TOL['gen']});"
+        f" metrics {json.dumps(r0['e_metrics'])}; files {files}; batch "
+        f"loop {loop:.2f} s = {n / loop:.1f} scored sequences/s; on {card}")
+    zero = {k: 0 for k in SOURCES}
+    for i, r in enumerate(ranks):
+        check_launches(f"{tag} rank {i}", r["e_counts"], zero)
+    if err > EVAL_SCORE_TOL["gen"] or files != ["performance_log.txt"]:
+        raise AssertionError(f"{tag}: the evaluation over the model group "
+                             "differs from one process's")
+    shutil.rmtree(out)
+    return [r["e_counts"] for r in ranks]
+
+
+def tp_refusal_part(train_flags):
+    """(g): -model_parallel 3 exits with JAX's validate_model_parallel
+    message, before any work."""
+    from gstx_torch.cli import train_gen
+
+    common, teacher = train_flags
+    try:
+        train_gen.main(common + teacher + ["-model_parallel", "3"],
+                       max_steps=1, device="cuda")
+    except ValueError as e:
+        got = str(e)
+    else:
+        got = None
+    log(f"[phase 15g] -model_parallel 3 on the production configs: {got!r}")
+    if got != JAX_MP3_MESSAGE:
+        raise AssertionError(f"phase 15g: want {JAX_MP3_MESSAGE!r}")
+
+
+def tp_run(torch, card, tmp, ckpts, want, train_flags, disc_flags,
+           cards, tag):
+    """Phase 15 (a)-(f) on ``cards`` cards: 1 is the two ranks on one card
+    over gloo, with the demo, (c) and (d) at a small batch; more is
+    ``cards / 2`` replicas of two shards over nccl, a rank a card, (c) at
+    TP_CARDS_IMAGES images and (d) at TP_CARDS_TRAIN_BATCH rows with a
+    warm step.  Returns the launch counts of (c) and (e) by rank."""
+    t0 = time.perf_counter()
+    one_card = cards == 1
+    world = TP_DEGREE if one_card else cards
+    backend = "gloo" if one_card else None
+    sizes = {} if one_card else dict(images=TP_CARDS_IMAGES,
+                                     train_batch=TP_CARDS_TRAIN_BATCH,
+                                     warm=True)
+    spec, demo_ckpt = tp_spec(tmp, train_flags, disc_flags,
+                              world // TP_DEGREE, demo=one_card, **sizes)
+    spec["eval_argv"] = tp_eval_argv(tmp, ckpts)
+    unbiased_ckpt(torch, ckpts["full"], demo_ckpt)
+    ranks, wall = launch_ranks(tag, spec, tmp, world=world, backend=backend)
+    if one_card:
+        log(f"[{tag}] the ranks' launch: {wall:.2f} s wall, gloo (NCCL "
+            "takes one rank a card): its collectives are a host "
+            "transport, not tensor parallelism's speed")
+    else:
+        log(f"[{tag}] the ranks' launch: {wall:.2f} s wall, nccl")
+    counts = {"tp_int8": tp_report(tag, card, ranks, spec),
+              "tp_eval": tp_eval_check(torch, card, tmp, ranks, want,
+                                       f"{tag} e")}
+    os.remove(demo_ckpt)
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s; on {card}")
+    return counts
+
+
+def tp_phase(torch, card, tmp, ckpts, scores7, train_flags, disc_flags):
+    """Phase 15: tensor parallelism at full width on the one card, two
+    ranks over gloo.  Returns the launch counts by path."""
+    import numpy as np
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # phase 7's scores of the first dialog's first options
+    want = torch.from_numpy(np.concatenate(scores7)[:ROUNDS * EVAL_OPTIONS]
+                            ).reshape(ROUNDS, EVAL_OPTIONS)[:, :TP_EVAL_OPTIONS]
+    counts = tp_run(torch, card, tmp, ckpts, want, train_flags,
+                    disc_flags, 1, "phase 15")
+    tp_refusal_part(train_flags)
+    log(f"[phase 15] {time.perf_counter() - t0:.1f} s in all; on {card}")
+    return counts
+
+
+RANK_TASKS = {"step": rank_step, "cli": rank_cli, "pair": rank_pair,
+              "tp": rank_tp}
+
+
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
@@ -3294,6 +4251,8 @@ def main():
         dp_counts = dp_phase(torch, counters, card, tmp, gen_argv, records6,
                              eval_data, scores7, ckpts, train_flags,
                              disc_flags)
+        tp_counts = tp_phase(torch, card, tmp, ckpts, scores7, train_flags,
+                             disc_flags)
     profile_last()
     profile_beam()
 
@@ -3323,7 +4282,11 @@ def main():
                               "dp_generate_ranks": [
                                   c[name] for c in dp_counts["dp_generate"]],
                               "dp_eval_ranks": [
-                                  c[name] for c in dp_counts["dp_eval"]]},
+                                  c[name] for c in dp_counts["dp_eval"]],
+                              "tp_int8_ranks": [
+                                  c[name] for c in tp_counts["tp_int8"]],
+                              "tp_eval_ranks": [
+                                  c[name] for c in tp_counts["tp_eval"]]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -3395,9 +4358,62 @@ def dp_cards_main(worlds):
     return 0
 
 
+def tp_cards_main(worlds):
+    """``python3 chip_smoke.py --tp-cards N [M ...]``: phase 15 (a)-(e)
+    and (g) on N (then M ...) cards over nccl, a rank a card: N / 2
+    replicas of 2 shards (2 cards: 1 x 2; 4 cards: 2 x 2, data x model),
+    after phase 1's build and the inputs of phases 6-9; (e) holds rank 0's
+    scores against one process's run of the evaluator on the same dialog.
+    Each part's times and peak memory a rank beside one process's.  N = 1
+    is phase 15 itself (two ranks on one card over gloo, the demo too),
+    alone.  Needs as many cards."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < max(worlds):
+        print(f"chip_smoke --tp-cards: {max(worlds)} cards needed",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from gstx_torch.cli import evaluate_gen
+    from gstx_torch.eval import rank_gen
+    from gstx_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[tp cards] {torch.cuda.device_count()} x {card}")
+    build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, vocab, _ = cli_inputs(torch, np, tmp)
+        ckpts = {"full": os.path.join(tmp, "model.ckpt")}
+        train_flags = train_inputs(np, tmp, vocab)
+        train_flags = (train_flags[0], train_flags[2])
+        disc_flags = disc_inputs(np, tmp, vocab)
+        eval_inputs(np, tmp, vocab)
+        scores = []
+        with recording_scores(rank_gen, scores):
+            evaluate_gen.main(tp_eval_inputs(tmp) + [
+                "-vocab_path", os.path.join(tmp, "vocab.txt"),
+                "-start_path", ckpts["full"], "-use_pallas", "-mode",
+                "vd_eval_val", "-save_path", os.path.join(tmp, "tp_one")],
+                chunk_size=GEN_CHUNK, device="cuda")
+        want = torch.from_numpy(np.concatenate(scores)).reshape(
+            ROUNDS, TP_EVAL_OPTIONS)
+        for cards in worlds:
+            tp_run(torch, card, tmp, ckpts, want, train_flags, disc_flags,
+                   cards, f"tp {cards} cards")
+        tp_refusal_part(train_flags)
+    log(f"[tp cards] passed on {card}")
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank":
         sys.exit(rank_main(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--dp-cards":
         sys.exit(dp_cards_main([int(n) for n in sys.argv[2:]]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--tp-cards":
+        sys.exit(tp_cards_main([int(n) for n in sys.argv[2:]]))
     sys.exit(main())

@@ -2,10 +2,11 @@
 with the reference's ``-flag`` surface, tokenizer, model and checkpoint
 construction, and the runtime switches.
 
-Multi-process runs (``-distributed`` under a launcher, a rank a card) and
-``-data_parallel`` follow the JAX CLIs (:mod:`gstx_torch.core.mesh`);
-tensor parallelism (``-model_parallel`` > 1) is refused: ROADMAP queue 1
-item 9b.
+Multi-process runs (``-distributed`` under a launcher, a rank a card),
+``-data_parallel`` and ``-model_parallel`` follow the JAX CLIs
+(:mod:`gstx_torch.core.mesh`): ``world = dp x mp`` ranks, rank ``d * mp +
+m`` holding shard ``m`` of replica ``d``; one process runs the whole model
+whatever ``-model_parallel`` asks, as the JAX CLIs do on one device.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ from gstx_torch.core.mesh import pad_batch_rows  # noqa: F401
 from gstx_torch.data.tokenizer import BertTokenizer
 from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models.encdec import GSTVisualDialog
-
-TENSOR_PARALLEL = "not ported: ROADMAP queue 1 item 9b, tensor parallelism"
 
 
 def _check_choice(name, value, choices):
@@ -76,16 +75,19 @@ def parse_config(argv=None, description: str = "gstx_torch") -> GSTConfig:
     return cfg
 
 
-def apply_runtime_flags(config: GSTConfig, device=None):
+def apply_runtime_flags(config: GSTConfig, device=None,
+                        enc_only: bool = False):
     """Join the process group under ``-distributed`` (the launcher's
     environment; a no-op in a plain process) for the rank on ``device``
-    (default: :func:`default_device`'s), refuse ``-model_parallel``
-    > 1, and set the fused FFN / projection-LayerNorm kernels' switch from
-    ``-use_pallas``.  The attention and decode kernels stay off, as the
-    JAX CLIs leave them."""
-    if config.model_parallel > 1:
-        raise SystemExit(f"error: -model_parallel {config.model_parallel}: "
-                         f"{TENSOR_PARALLEL}")
+    (default: :func:`default_device`'s), check that ``-model_parallel``
+    divides every head count and intermediate size (JAX's
+    ``validate_model_parallel``, its message, raised early) and set the
+    fused FFN / projection-LayerNorm kernels' switch from ``-use_pallas``.
+    The attention and decode kernels stay off, as the JAX CLIs leave
+    them.  ``enc_only``: the encoder-only model (no decoder dimensions)."""
+    mesh.validate_model_parallel(
+        config.encoder_config(), None if enc_only else
+        config.decoder_config(), config.model_parallel)
     if config.distributed:
         device = default_device(device)
         backend = mesh.init_distributed(device)
@@ -96,36 +98,17 @@ def apply_runtime_flags(config: GSTConfig, device=None):
     kffn.enable(config.use_pallas)
 
 
-def primary_process_only() -> bool:
+def primary_process_only(what: str = "evaluation") -> bool:
     """True when this process should run a single-process evaluation
     (``gstx/cli/common.py:113-125``): in a multi-process run whose
     evaluation does not span the ranks, the ranks other than 0 would
     duplicate the whole computation and race on the output files; they
     log and skip instead."""
     if mesh.process_count() > 1 and mesh.process_index() != 0:
-        print(f"[gstx_torch] evaluation runs on rank 0: rank "
+        print(f"[gstx_torch] {what} runs on rank 0: rank "
               f"{mesh.process_index()} idle")
         return False
     return True
-
-
-def make_generation_mesh(config: GSTConfig, device):
-    """The data axis of the evaluators (``gstx/cli/common.py:140-178``):
-    None when ``-data_parallel`` is 1 or the group has one rank (the JAX
-    CLI's one local device), else the first ``-data_parallel`` ranks (-1:
-    every rank), a :class:`gstx_torch.core.mesh.DataParallel`, or None
-    for a rank outside them.  More ranks than the group has raise JAX's
-    error.  Every rank must call it."""
-    if config.data_parallel == 1 or mesh.process_count() <= 1:
-        return None
-    ranks = config.data_parallel
-    if ranks == -1:
-        ranks = mesh.process_count()
-    if ranks < 1 or ranks > mesh.process_count():
-        raise SystemExit(
-            f"error: mesh {ranks}x1 needs {ranks} devices, "
-            f"have {mesh.process_count()} ranks")
-    return mesh.data_parallel(device, ranks)
 
 
 def build_tokenizer(config: GSTConfig) -> BertTokenizer:
@@ -133,13 +116,15 @@ def build_tokenizer(config: GSTConfig) -> BertTokenizer:
 
 
 def build_model(config: GSTConfig, device="cuda", seed: int = 0,
-                use_decoder: bool = True) -> GSTVisualDialog:
+                use_decoder: bool = True, tp=None) -> GSTVisualDialog:
     """The port's model from the encoder/decoder configs (or their JSONs),
     on ``device``, with seeded initial weights; ``use_decoder=False`` builds
-    the encoder-only model of the discriminative evaluator."""
+    the encoder-only model of the discriminative evaluator; ``tp``: the
+    model group whose rank's shard it keeps (a checkpoint then loads by
+    slicing, :func:`load_params`)."""
     return GSTVisualDialog(config.encoder_config(), config.decoder_config(),
                            device=device, seed=seed,
-                           use_decoder=use_decoder).eval()
+                           use_decoder=use_decoder, tp=tp).eval()
 
 
 def load_params(model: GSTVisualDialog, path: str) -> GSTVisualDialog:

@@ -16,8 +16,11 @@ fused FFN / projection-LayerNorm kernels follow ``-use_pallas``.  Under
 ``-distributed`` across N ranks (``python -m torch.distributed.run
 --nproc_per_node N -m gstx_torch.cli.evaluate_gen ... -distributed``) the
 chunks' rows split over the first ``-data_parallel`` ranks (-1: all;
-:func:`gstx_torch.cli.common.make_generation_mesh`) and rank 0 writes the
+:func:`gstx_torch.core.mesh.make_layout`) and rank 0 writes the
 log and the predictions; with ``-data_parallel 1`` rank 0 evaluates alone.
+With ``-model_parallel M`` the ranks form ``-data_parallel`` replicas of
+M shards (``dp x M`` ranks): the rows split over the replicas and each
+model group computes its rows together.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ import pprint
 
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
-                                   load_params, make_generation_mesh,
-                                   parse_config, primary_process_only)
+                                   load_params, parse_config,
+                                   primary_process_only)
+from gstx_torch.core import mesh
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -55,17 +59,19 @@ def run_evaluation(config, dev, dataset_cls, evaluator, use_decoder,
     write the log, and in test mode ``predictions.txt``.  Returns the
     evaluator's result; in a multi-process run, on rank 0 only (None on
     the others)."""
-    apply_runtime_flags(config, dev)
-    dp = make_generation_mesh(config, dev)
-    if dp is None and not primary_process_only():
+    apply_runtime_flags(config, dev, enc_only=not use_decoder)
+    dp, tp = axes = mesh.make_layout(config.data_parallel,
+                                     config.model_parallel, dev,
+                                     every_rank=False)
+    if not axes.spans and not primary_process_only():
         return None
-    primary = dp is None or dp.rank == 0
+    primary = mesh.process_index() == 0
     os.makedirs(config.save_path, exist_ok=True)
     eval_batch_size = 20 if config.vd_version == "1.0" else 25
 
     dataset = dataset_cls(config, build_tokenizer(config), mode=config.mode)
     model = load_params(build_model(config, device=dev,
-                                    use_decoder=use_decoder),
+                                    use_decoder=use_decoder, tp=tp),
                         config.start_path)
     if config.dtype == "bfloat16":
         precast_(model)

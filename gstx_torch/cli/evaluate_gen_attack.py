@@ -31,8 +31,9 @@ import numpy as np
 
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
-                                   load_params, make_generation_mesh,
-                                   parse_config, primary_process_only)
+                                   load_params, parse_config,
+                                   primary_process_only)
+from gstx_torch.core import mesh
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -79,17 +80,20 @@ def main(argv=None, max_batches=None, device=None, stats_out=None):
     dev = default_device(device)
     pprint.pprint(config)
     apply_runtime_flags(config, dev)
-    dp = make_generation_mesh(config, dev)
-    if dp is None and not primary_process_only():
+    dp, tp = axes = mesh.make_layout(config.data_parallel,
+                                     config.model_parallel, dev,
+                                     every_rank=False)
+    if not axes.spans and not primary_process_only():
         return None
-    primary = dp is None or dp.rank == 0
+    primary = mesh.process_index() == 0
     os.makedirs(config.save_path, exist_ok=True)
 
     tokenizer = build_tokenizer(config)
     dataset = VisdialGenDataset(config, tokenizer, mode="vd_eval_val")
     # the dataset masks history tokens with mask_prob under this attack
     dataset.attack_mode = config.attack == "random_token"
-    model = load_params(build_model(config, device=dev), config.start_path)
+    model = load_params(build_model(config, device=dev, tp=tp),
+                        config.start_path)
     if config.dtype == "bfloat16":
         precast_(model)
     text_attack = coref_dependency = None

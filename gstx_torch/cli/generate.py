@@ -18,6 +18,10 @@ environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.  Under
 rank generates its stripe of the images and writes the shard
 ``name.procN.ext``, as the JAX CLI's processes do; the ranks never talk,
 and :func:`gstx_torch.data.cc12m.load_dialog_json` reads the shards back.
+With ``-model_parallel M`` the N ranks form N / M replicas of M shards:
+each replica generates its stripe (striped by the replica's index) over
+its model group, and the group's rank 0 alone writes the replica's shard
+``name.procD.ext`` and its sidecar.
 
 Differences from the JAX CLI, none of which changes what a run computes:
   * each batch samples from its own ``torch.Generator`` on the device,
@@ -234,6 +238,13 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
                          "required")
     apply_runtime_flags(config, dev)
     os.makedirs(config.save_path, exist_ok=True)
+    # every rank a replica of its own (striped by _process_info) unless
+    # -model_parallel groups them: world / M replicas of M shards
+    axes = mesh.make_layout(-1, config.model_parallel, dev) \
+        if config.model_parallel > 1 and mesh.process_count() > 1 else None
+    tp = None if axes is None else axes.tp
+    # the model group's rank 0 writes its replica's shard and sidecar
+    writer = tp is None or tp.rank == 0
 
     tokenizer = build_tokenizer(config)
     if config.mode == "vd_gen_val":
@@ -245,12 +256,12 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
 
         dataset = CC12mDataset(config, tokenizer, mode="cc12m_gen")
 
-    q_model = load_params(build_model(config, device=dev),
+    q_model = load_params(build_model(config, device=dev, tp=tp),
                           config.start_path_q)
     if config.start_path_a == config.start_path_q:
         a_model = q_model  # one set of weights; the engine sees it as one
     else:
-        a_model = load_params(build_model(config, device=dev),
+        a_model = load_params(build_model(config, device=dev, tp=tp),
                               config.start_path_a)
 
     image_id_to_url = {}
@@ -278,7 +289,8 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         quantize_memory=config.quantize_memory,
         device=dev)
 
-    proc_idx, proc_count = _process_info()
+    proc_idx, proc_count = _process_info() if axes is None else \
+        (axes.data_rank, axes.data_size)
     loader = DataLoader(dataset, batch_size=config.batch_size, shuffle=False,
                         drop_last=False, num_workers=config.num_workers,
                         seed=config.seed, process_index=proc_idx,
@@ -293,7 +305,8 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
     # preemption recovery (the reference loses the whole chunk,
     # generate.py:258): completed batches append to a JSONL sidecar; a
     # restart resumes at the first unfinished batch
-    sidecar = out_path + ".partial.jsonl" if config.flush_every > 0 else None
+    sidecar = out_path + ".partial.jsonl" \
+        if config.flush_every > 0 and writer else None
     meta = _sidecar_meta(config, proc_idx, proc_count, len(dataset),
                          dev.type)
     start_batch, recovered = 0, []
@@ -302,6 +315,9 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         if start_batch:
             print(f"[generate] resuming at batch {start_batch} "
                   f"({sum(len(b) for b in recovered)} dialogs recovered)")
+    if tp is not None:
+        # the writer's resume point for the whole model group
+        start_batch = int(tp.broadcast(torch.tensor([start_batch]))[0])
     if sidecar:
         # rewrite the sidecar as exactly the recovered prefix (drops a torn
         # tail, stamps the meta of a fresh run) through a temp file: a
@@ -445,8 +461,10 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
     if stats_out is not None:
         stats_out.update(totals, loop_seconds=time.time() - t0)
 
-    if not finalize:
-        return gen_data  # simulated preemption: the sidecar holds progress
+    if not finalize or not writer:
+        # a simulated preemption (the sidecar holds progress), or a rank
+        # whose model group's rank 0 writes
+        return gen_data
     flush_sidecar()
     # write a temp file and swap it in: a kill during the dump must not
     # leave a torn JSON; the sidecar goes only once the swap has landed

@@ -12,9 +12,13 @@ It runs on ``cuda`` unless ``main`` is given ``device="cpu"`` or the
 environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.  The
 model is built, loaded and (``-dtype bfloat16``) cast to bf16 once per
 run; the fused FFN / projection-LayerNorm kernels follow ``-use_pallas``.
-One process, as the JAX CLI: ``-data_parallel`` changes nothing (a batch
-of one dialog), ``-model_parallel`` > 1 is refused (ROADMAP queue 1 item
-9b).
+``-data_parallel`` changes nothing (a batch of one dialog), as in the JAX
+CLI.  ``-model_parallel M`` under ``-distributed`` on M ranks (``python
+-m torch.distributed.run --nproc_per_node M -m gstx_torch.cli.inference
+... -distributed -model_parallel M``) places the model's shards on the
+ranks, so that a model larger than one card still serves
+(``gstx/cli/inference.py:36-58``): rank 0 reads each line and broadcasts
+it, every rank decodes, and rank 0 writes the transcript.
 
 Sampling draws from one ``torch.Generator`` on the device, seeded from
 ``-seed``; the JAX CLI splits a ``PRNGKey`` per turn, so sampled replies
@@ -27,10 +31,13 @@ import pprint
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
-                                   load_params, parse_config)
+                                   load_params, parse_config,
+                                   primary_process_only)
+from gstx_torch.core import mesh
 from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
 from gstx_torch.data.visdial import VisdialGenDataset
 from gstx_torch.decode.dialog_engine import DialogState, append_utterance
@@ -53,10 +60,18 @@ def main(argv=None, input_fn=input, output_fn=print, max_turns=None,
         raise SystemExit("error: -start_path (the answerer's checkpoint) "
                          "is required")
     apply_runtime_flags(config, dev)
+    # one dialog: the model group of the first M ranks serves it
+    tp = mesh.make_layout(1, config.model_parallel, dev,
+                          every_rank=False).tp
+    if tp is None and not primary_process_only("the demo"):
+        return
+    if tp is not None and tp.rank != 0:
+        output_fn = _silent
 
     tokenizer = build_tokenizer(config)
     dataset = VisdialGenDataset(config, tokenizer, mode="vd_gen_val")
-    model = load_params(build_model(config, device=dev), config.start_path)
+    model = load_params(build_model(config, device=dev, tp=tp),
+                        config.start_path)
     if config.dtype == "bfloat16":
         precast_(model)
     settings = DecodeSettings(
@@ -94,18 +109,16 @@ def main(argv=None, input_fn=input, output_fn=print, max_turns=None,
             return model.decode_step(tok, pos, caches, mem_kv, mem_mask)
 
         caches = init_cache(model.dec_config, 1, settings.max_steps + 1,
-                            model.dtype, dev)
+                            model.dtype, dev, model.dec.local_heads)
         return sample_sequence(step_fn, generator, 1, caches, settings,
-                               bos_id=CLS_ID, eos_id=SEP_ID, device=dev)
+                               bos_id=CLS_ID, eos_id=SEP_ID, device=dev,
+                               tp=tp)
 
     q_cap = min(config.max_utt_len - 2, config.max_dec_len - 1)
     turns = 0
     while True:
-        try:
-            line = input_fn("you: ")
-        except EOFError:
-            break
-        if not line or line.strip() in ("quit", "exit"):
+        line = _read_line(input_fn, tp)
+        if line is None or not line or line.strip() in ("quit", "exit"):
             break
         q_ids = tokenizer.encode(line.strip())[:q_cap] + [SEP_ID]
         q = torch.zeros((1, config.max_dec_len), dtype=torch.long)
@@ -126,6 +139,27 @@ def main(argv=None, input_fn=input, output_fn=print, max_turns=None,
         turns += 1
         if max_turns is not None and turns >= max_turns:
             break
+
+
+def _silent(line):
+    pass
+
+
+def _read_line(input_fn, tp):
+    """The next question, None at EOF.  Under tensor parallelism the
+    model group's rank 0 reads it and broadcasts it to the others."""
+    line = None
+    if tp is None or tp.rank == 0:
+        try:
+            line = input_fn("you: ")
+        except EOFError:
+            line = None
+    if tp is not None:
+        box = [line]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(tp.group, 0), group=tp.group)
+        line = box[0]
+    return line
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.
 loop.  The checkpoints (``vd_train_disc_{epoch}.ckpt`` at each epoch
 boundary, ``vd_train_disc_step.ckpt`` under ``-save_every_steps``) and the
 log (``log_disc.txt``, ``metrics.jsonl``) go to ``-save_path``.  Data
-parallel over the ranks of ``-distributed`` as
+parallel over the ranks of ``-distributed``, and tensor parallel under
+``-model_parallel`` (the data x model layout), as
 :mod:`gstx_torch.cli.train_gen`.
 """
 
@@ -47,7 +48,7 @@ def main(argv=None, max_steps=None, device=None, stats_out=None):
     if config.model != "enc_only_a":
         raise SystemExit(f"error: -model {config.model}: discriminative "
                          "training trains enc_only_a")
-    apply_runtime_flags(config, dev)
+    apply_runtime_flags(config, dev, enc_only=True)
     dataset = VisdialDiscDataset(config, build_tokenizer(config),
                                  mode="vd_train")
     return train_disc(config, dataset, max_steps=max_steps, device=dev,

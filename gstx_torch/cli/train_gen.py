@@ -19,6 +19,15 @@ checkpoints; ``-data_parallel`` is -1 or N; ``-batch_size`` is global):
 
     python -m torch.distributed.run --nproc_per_node N \
         -m gstx_torch.cli.train_gen ... -distributed
+
+Tensor parallel (``-model_parallel M``; N = data_parallel x M ranks, rank
+``d * M + m`` holding shard ``m`` of replica ``d``): the batch splits over
+the replicas and each model group computes its rows together; the
+checkpoints hold full tensors, which load at any degree and in one
+process.  On the CPU:
+
+    GSTX_PLATFORM=cpu python -m torch.distributed.run --nproc_per_node 2 \
+        -m gstx_torch.cli.train_gen ... -distributed -model_parallel 2
 """
 
 from __future__ import annotations

@@ -311,20 +311,73 @@ def save_checkpoint(path: str, model, optimizer, step: int):
     shared file system; the ranks hold the same replica, so rank 0 alone
     writes and swaps, and the others wait at a barrier before and after
     (``gstx/core/checkpoint.py:38-70``): no rank returns before the file
-    is complete."""
+    is complete.
+
+    Under tensor parallelism (``model.tp``) the file holds full tensors:
+    every rank of a model group gathers its shards, the AdamW moments
+    included (:func:`gather_optimizer_state`), before rank 0 writes, so
+    the file loads in one process, at any degree, and in the JAX
+    package."""
     path = os.path.abspath(path)
     mesh.barrier()
+    model_sd = optim_sd = None
+    if getattr(model, "tp", None) is not None:
+        model_sd = model.full_state_dict()
+        optim_sd = gather_optimizer_state(optimizer.state_dict(), model)
     if mesh.process_index() == 0:
-        _write_checkpoint(path, model, optimizer, step)
+        if model_sd is None:
+            model_sd = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()}
+            optim_sd = optimizer.state_dict()
+        _write_checkpoint(path, model_sd, optim_sd, step)
     mesh.barrier()
 
 
-def _write_checkpoint(path, model, optimizer, step):
+def _optimizer_names(optim_sd: dict) -> Dict[int, str]:
+    """Each parameter index of an optimizer state dict with its name (the
+    port's AdamW keeps its groups' names)."""
+    return {i: n for g in optim_sd["param_groups"]
+            for i, n in zip(g["params"], g["names"])}
+
+
+def gather_optimizer_state(optim_sd: dict, model) -> dict:
+    """The optimizer state dict with each rank's sharded moments gathered
+    to full tensors over ``model.tp`` (a collective of the model group);
+    scalars and replicated tensors as they are."""
+    names = _optimizer_names(optim_sd)
+    state = {}
+    for i in sorted(optim_sd["state"]):
+        name = names[i]
+        state[i] = {}
+        for k, v in optim_sd["state"][i].items():
+            if torch.is_tensor(v) and v.dim() > 0:
+                v = mesh.gather_state_dict({name: v}, model.tp,
+                                           model._full_shapes)[name]
+            state[i][k] = v
+    return dict(optim_sd, state=state)
+
+
+def shard_optimizer_state(optim_sd: dict, model) -> dict:
+    """A full optimizer state dict (:func:`gather_optimizer_state`'s, or a
+    one-process one) sliced to ``model``'s shards, as the model's
+    ``load_state_dict`` slices its weights: a resume at any degree."""
+    if getattr(model, "tp", None) is None:
+        return optim_sd
+    names = _optimizer_names(optim_sd)
+    tp, warned = model.tp, set()
+    state = {i: {k: mesh.shard_tensor(names[i], v, tp.size, tp.rank,
+                                      warned).clone()
+                 if torch.is_tensor(v) and v.dim() > 0 else v
+                 for k, v in s.items()}
+             for i, s in optim_sd["state"].items()}
+    return dict(optim_sd, state=state)
+
+
+def _write_checkpoint(path, model_sd, optim_sd, step):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp, old = path + ".tmp", path + ".old"
-    torch.save({"model_state_dict": {k: v.detach().cpu() for k, v in
-                                     model.state_dict().items()},
-                "optimizer_state_dict": optimizer.state_dict(),
+    torch.save({"model_state_dict": model_sd,
+                "optimizer_state_dict": optim_sd,
                 "step": int(step)}, tmp)
     if os.path.exists(old):
         os.remove(old)

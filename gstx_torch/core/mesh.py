@@ -22,9 +22,19 @@ and :func:`init_distributed` raises before it would try.  Gloo reduces on
 the host, so under gloo a CUDA tensor crosses to host memory for each
 collective and back (a transport; the compute stays on the card).
 
-The tensor-parallel half of the JAX module (``param_partition_spec``,
-``validate_model_parallel``, ``shard_by_path``, the ``model`` axis) is
-ROADMAP queue 1 item 9b.
+Tensor parallelism (``-model_parallel`` > 1, the JAX module's ``model``
+axis, ``mesh.py:179-311``): ``world = dp x mp`` ranks, rank ``d * mp + m``
+(the order of ``make_mesh``'s ``reshape(data_parallel, model_parallel)``)
+holding model shard ``m`` of replica ``d``; every entry point takes its
+layout from :func:`make_layout`.  :func:`make_groups` builds a
+**model group** of the ``mp`` ranks of one replica (:class:`ModelGroup`)
+and a **data group** of the ``dp`` ranks that hold the same shard (a
+:class:`DataParallel`).  :func:`param_partition` names each parameter's
+class in the port's state-dict names (vocab rows, column-parallel,
+row-parallel or replicated); :func:`shard_state_dict` slices a full state
+dict for one rank and :func:`gather_state_dict` puts a rank's shards back
+together.  The sharded modules are in
+:mod:`gstx_torch.models.tensor_parallel`.
 """
 
 from __future__ import annotations
@@ -32,9 +42,10 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+import re
 import socket
 from dataclasses import dataclass
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -138,13 +149,17 @@ def card_name(dev: torch.device) -> str:
 def _refuse_shared_devices(store, rank: int, world: int, dev: torch.device):
     """Every rank publishes its card (:func:`card_name`) and reads the
     others'; when two share one, every rank raises, naming them.  Each
-    rank waits until all have read, so that a rank that serves the store
-    stays up while the others still read."""
+    rank waits until all have read, and rank 0, which serves the store
+    outside ``torchrun``, stays until every rank's last call on it has
+    been answered."""
     where = card_name(dev)
     store.set(f"gstx/device/{rank}", where)
     seen = [store.get(f"gstx/device/{r}").decode() for r in range(world)]
     store.set(f"gstx/device_seen/{rank}", "1")
     store.wait([f"gstx/device_seen/{r}" for r in range(world)])
+    store.set(f"gstx/device_left/{rank}", "1")
+    if rank == 0:
+        store.wait([f"gstx/device_left/{r}" for r in range(world)])
     shared = [r for r in range(world) if seen[r] == where and r != rank]
     if shared:
         raise RuntimeError(
@@ -220,6 +235,15 @@ def pad_batch_rows(batch, multiple: int):
     return batch, n
 
 
+def _wire(t: torch.Tensor, backend: str, device) -> torch.Tensor:
+    """``t`` as a collective of ``backend`` takes it: gloo reduces on the
+    host, so a CUDA tensor is staged through host memory (the transport
+    gloo itself would use); NCCL moves device memory only."""
+    if backend == "nccl":
+        return t.to(device)
+    return t.cpu()
+
+
 @dataclass(frozen=True)
 class DataParallel:
     """The data axis: ``size`` ranks of ``group`` (None: the default group),
@@ -239,12 +263,7 @@ class DataParallel:
         return dist.get_backend(self.group)
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        # gloo reduces on the host: a CUDA tensor is staged through host
-        # memory (the transport gloo itself would use); NCCL moves device
-        # memory only
-        if self.backend == "nccl":
-            return t.to(self.device)
-        return t.cpu()
+        return _wire(t, self.backend, self.device)
 
     def all_reduce_grads_(self, params: Iterable[torch.nn.Parameter]
                           ) -> None:
@@ -342,16 +361,276 @@ def data_parallel(device, ranks: Optional[int] = None
     return DataParallel(group, rank, ranks, rank_device(device))
 
 
-def training_data_parallel(data_parallel_flag: int, device
-                           ) -> Optional[DataParallel]:
-    """A trainer's data axis: every rank of the group (``-data_parallel
-    -1`` takes them all); any other degree raises, as ``make_mesh`` does
-    for a mesh that is not the devices (``gstx/core/mesh.py:137-140``).
-    None without a group."""
+# ---------------------------------------------------------------------- #
+# tensor parallelism: the model axis
+# ---------------------------------------------------------------------- #
+
+VOCAB, COLUMN, ROW = "vocab", "column", "row"
+
+# The classes of ``gstx/core/mesh.py:179-233`` in the port's state-dict
+# names (``nn.Linear`` weights are [out, in]).  Vocab rows: the word table
+# (and its tied names), the decoder's LM head and the vocab biases.
+# Column-parallel, the output features with their bias: every attention
+# query / key / value (text, visual and decoder stacks, the decoder's
+# cross-attention, the co-attention's six), every FFN's first product.
+# Row-parallel, the input features (the bias is added after the
+# all-reduce, so it stays whole): every attention output projection, the
+# co-attention's BiOutput projections and every FFN's second product.
+# Everything else is replicated, the unused ``biOutput.q_dense*`` too.
+_VOCAB_NAMES = re.compile(
+    r"(?:^|\.)(?:word_embeddings\.weight|lm_head\.decoder\.(?:weight|bias)"
+    r"|lm_head\.bias|cls\.predictions\.(?:decoder\.weight|bias))$")
+_COLUMN_NAMES = re.compile(
+    r"\.(?:(?:cross)?attention\.self\.(?:query|key|value)"
+    r"|biattention\.(?:query|key|value)[12]"
+    r"|(?:v_|t_)?intermediate\.dense)\.(?:weight|bias)$")
+_ROW_NAMES = re.compile(
+    r"\.(?:(?:v_|t_)?output\.dense|biOutput\.dense[12])\.weight$")
+
+
+def param_partition(name: str) -> Optional[str]:
+    """The partition class of a state-dict name: :data:`VOCAB`,
+    :data:`COLUMN`, :data:`ROW`, or None (replicated); the port's
+    ``param_partition_spec`` (``gstx/core/mesh.py:221-233``)."""
+    if _VOCAB_NAMES.search(name):
+        return VOCAB
+    if _COLUMN_NAMES.search(name):
+        return COLUMN
+    if _ROW_NAMES.search(name):
+        return ROW
+    return None
+
+
+def partition_dim(name: str) -> Optional[int]:
+    """The dimension a parameter shards on: 0 for the vocab rows and the
+    column-parallel outputs (weights and biases), 1 for the row-parallel
+    inputs, None when replicated."""
+    kind = param_partition(name)
+    if kind is None:
+        return None
+    return 1 if kind == ROW else 0
+
+
+def validate_model_parallel(enc_cfg, dec_cfg, model_parallel: int) -> None:
+    """Raise early, naming the dimension, when a model-parallel degree
+    cannot shard the transformer on head and feature boundaries
+    (``gstx/core/mesh.py:236-258``, its dimensions and message).  Pass
+    ``dec_cfg=None`` for the encoder-only model."""
+    if model_parallel <= 1:
+        return
+    dims = {
+        "num_attention_heads": enc_cfg.num_attention_heads,
+        "v_num_attention_heads": enc_cfg.v_num_attention_heads,
+        "bi_num_attention_heads": enc_cfg.bi_num_attention_heads,
+        "intermediate_size": enc_cfg.intermediate_size,
+        "v_intermediate_size": enc_cfg.v_intermediate_size,
+    }
+    if dec_cfg is not None:
+        dims["decoder num_attention_heads"] = dec_cfg.num_attention_heads
+        dims["decoder intermediate_size"] = dec_cfg.intermediate_size
+    for name, value in dims.items():
+        if value % model_parallel != 0:
+            raise ValueError(
+                f"model_parallel={model_parallel} does not divide {name}="
+                f"{value}; pick a degree dividing every head count and "
+                f"intermediate size")
+
+
+def sharded_dim(name: str, shape, mp: int) -> Optional[int]:
+    """The dimension ``name`` (of ``shape``) shards on at degree ``mp``, or
+    None when it stays whole: a replicated class, ``mp`` 1, or a dimension
+    that does not divide by ``mp``."""
+    dim = partition_dim(name)
+    if dim is None or mp <= 1 or shape[dim] % mp:
+        return None
+    return dim
+
+
+def shard_dim(name: str, shape, mp: int, warned: Optional[set] = None
+              ) -> Optional[int]:
+    """:func:`sharded_dim`, with one message per tensor tail (the last two
+    name components, collected in ``warned``) for a dimension that does
+    not divide by ``mp``, as ``shard_by_path`` prints
+    (``gstx/core/mesh.py:277-311``): the 30,522-row vocab at ``mp`` 4
+    stays whole."""
+    dim = sharded_dim(name, shape, mp)
+    if dim is not None or partition_dim(name) is None or mp <= 1:
+        return dim
+    tail = ".".join(name.split(".")[-2:])
+    if warned is None or tail not in warned:
+        if warned is not None:
+            warned.add(tail)
+        print(f"[gstx_torch.mesh] {name}: dimension not divisible by "
+              f"model_parallel={mp}; tensor replicated", flush=True)
+    return None
+
+
+def shard_tensor(name: str, t: torch.Tensor, mp: int, m: int,
+                 warned: Optional[set] = None) -> torch.Tensor:
+    """Rank ``m``'s slice of the full tensor ``t`` named ``name``
+    (:func:`shard_dim`), a view; the tensor itself when it stays whole."""
+    dim = shard_dim(name, t.shape, mp, warned)
+    if dim is None:
+        return t
+    per = t.shape[dim] // mp
+    return t.narrow(dim, m * per, per)
+
+
+def shard_state_dict(full_sd: Dict[str, torch.Tensor], mp: int, m: int,
+                     warned: Optional[set] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Rank ``m`` of ``mp``'s slice of a full state dict (views; names
+    kept).  Its inverse is :func:`gather_state_dict`."""
+    warned = set() if warned is None else warned
+    return {k: shard_tensor(k, v, mp, m, warned) for k, v in full_sd.items()}
+
+
+def gather_state_dict(sd: Dict[str, torch.Tensor], tp: "ModelGroup",
+                      full_shapes: Dict[str, torch.Size]
+                      ) -> Dict[str, torch.Tensor]:
+    """The full tensors of a rank's shards ``sd``, on every rank of the
+    model group ``tp`` (a collective: every rank calls it with the same
+    names in the same order); ``full_shapes`` gives each tensor's full
+    shape, which decides, as :func:`sharded_dim` does, whether it was
+    sharded.  On the host."""
+    out = {}
+    for k, v in sd.items():
+        dim = sharded_dim(k, full_shapes[k], tp.size)
+        v = v.detach()
+        out[k] = (v if dim is None else tp.all_gather(v, dim)).cpu()
+    return out
+
+
+@dataclass(frozen=True)
+class ModelGroup:
+    """The model axis: the ``size`` ranks of ``group`` that hold one
+    replica, this process holding shard ``rank``, computing on
+    ``device``.  It carries the collectives of the sharded modules
+    (:mod:`gstx_torch.models.tensor_parallel`)."""
+
+    group: Optional[object]
+    rank: int
+    size: int
+    device: torch.device
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+    def _fresh(self, t: torch.Tensor) -> torch.Tensor:
+        wire = _wire(t.detach(), self.backend, self.device)
+        if wire.data_ptr() == t.data_ptr():
+            wire = wire.clone()
+        return wire.contiguous()
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """``op`` of ``t`` over the group, a new tensor on ``t``'s
+        device."""
+        wire = self._fresh(t)
+        dist.all_reduce(wire, op=op, group=self.group)
+        return wire.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's ``t``s concatenated on ``dim`` in rank order, on
+        ``t``'s device."""
+        wire = self._fresh(t)
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        dist.all_gather(parts, wire, group=self.group)
+        return torch.cat(parts, dim).to(t.device)
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Group rank 0's ``t`` on every rank, on ``t``'s device."""
+        wire = self._fresh(t)
+        dist.broadcast(wire, src=dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        return wire.to(t.device)
+
+
+class Axes(NamedTuple):
+    """This rank's place in a ``dp x mp`` layout: its data axis (None for
+    one replica) and its model group (None without tensor
+    parallelism)."""
+
+    dp: Optional[DataParallel]
+    tp: Optional[ModelGroup]
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self.dp is None else self.dp.rank
+
+    @property
+    def data_size(self) -> int:
+        return 1 if self.dp is None else self.dp.size
+
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.tp is None else self.tp.rank
+
+    @property
+    def spans(self) -> bool:
+        """Whether this rank shares its work with others (a data axis or
+        a model group); ``Axes(None, None)`` runs alone or idles."""
+        return self.dp is not None or self.tp is not None
+
+
+def make_groups(data_size: int, model_size: int, device) -> Axes:
+    """The groups of a ``data_size x model_size`` layout over the first
+    ``data_size * model_size`` ranks: rank ``d * model_size + m`` holds
+    shard ``m`` of replica ``d``.  Every rank of the process group calls
+    it: ``dist.new_group`` is collective, and every rank creates every
+    subgroup, the model groups first, in the same order.  Returns this
+    rank's :class:`Axes`, ``Axes(None, None)`` for a rank outside the
+    layout."""
+    n = data_size * model_size
+    model_groups = [dist.new_group(list(range(d * model_size,
+                                              (d + 1) * model_size)))
+                    for d in range(data_size)]
+    data_groups = [dist.new_group(list(range(m, n, model_size)))
+                   for m in range(model_size)]
+    rank = dist.get_rank()
+    if rank >= n:
+        return Axes(None, None)
+    d, m = divmod(rank, model_size)
+    dev = rank_device(device)
+    tp = ModelGroup(model_groups[d], m, model_size, dev) \
+        if model_size > 1 else None
+    dp = DataParallel(data_groups[m], d, data_size, dev) \
+        if data_size > 1 else None
+    return Axes(dp, tp)
+
+
+def make_layout(data_parallel_flag: int, model_parallel: int, device,
+                every_rank: bool = True) -> Axes:
+    """This rank's place in a ``dp x mp`` layout of the group's ranks,
+    ``-data_parallel`` -1 taking ``world // mp`` replicas
+    (``gstx/core/mesh.py:126-146``).  Every rank must call it (the
+    subgroups are made collectively).
+
+    ``every_rank`` (the trainers, ``training_mesh``, ``mesh.py:261-274``):
+    the layout is every rank of the group, a plain process included, and
+    any other raises, as ``make_mesh`` does.  Else (the evaluators and
+    the demo, ``gstx/cli/common.py:140-178``): a plain process runs the
+    whole model whatever the degrees ask, the first ``dp x mp`` ranks form
+    the layout and the others idle, and more ranks than the group has
+    raise JAX's error.  A layout of one rank, or a rank outside it, gets
+    ``Axes(None, None)``."""
+    mp = max(1, model_parallel)
     world = process_count()
-    dp = world if data_parallel_flag == -1 else data_parallel_flag
-    if dp != world:
-        raise ValueError(f"mesh {dp}x1 != {world} devices available (one "
-                         "rank a device: launch -data_parallel ranks, or "
-                         "pass -data_parallel -1)")
-    return data_parallel(device)
+    dp = world // mp if data_parallel_flag == -1 else data_parallel_flag
+    if every_rank:
+        if dp * mp != world or dp < 1:
+            raise ValueError(
+                f"mesh {dp}x{mp} != {world} devices available (one rank a "
+                "device: launch data_parallel x model_parallel ranks, or "
+                "pass -data_parallel -1)")
+    elif world <= 1:
+        return Axes(None, None)
+    elif dp < 1 or dp * mp > world:
+        raise SystemExit(f"error: mesh {dp}x{mp} needs {dp * mp} devices, "
+                         f"have {world} ranks")
+    if dp * mp == 1:
+        return Axes(None, None)
+    if mp == 1:
+        return Axes(data_parallel(device, dp), None)
+    return make_groups(dp, mp, device)

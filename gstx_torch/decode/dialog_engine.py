@@ -13,7 +13,12 @@ Differences from the JAX engine, none of which changes the math:
   * the dialog context and the KV caches are updated in place;
   * the models carry their weights; the engine casts them to its dtype in
     place on first use (the JAX engine's one-time precast);
-  * no device mesh.
+  * no device mesh: a model built with a model group (tensor parallelism)
+    computes its rank's heads, the engine casts the rank's shards, the KV
+    caches hold the rank's heads and the int8 memory quantizes them (one
+    scale per head and channel, so sharding by head keeps it exact); each
+    decode step's tokens are model-group rank 0's (the sampler's
+    broadcast).
 """
 
 from __future__ import annotations
@@ -147,10 +152,10 @@ def make_dialog_engine(num_rounds: int = 10,
             return model.decode_step(tok, pos, caches, mem_kv, mem_mask)
 
         caches = init_cache(model.dec_config, batch, settings.max_steps + 1,
-                            model.dtype, device)
+                            model.dtype, device, model.dec.local_heads)
         seq = sample_sequence(step_fn, generator, batch, caches, settings,
                               ngram_source=ngram_source, bos_id=CLS_ID,
-                              eos_id=SEP_ID, device=device)
+                              eos_id=SEP_ID, device=device, tp=model.tp)
         return seq, (mem_kv, mem_mask)
 
     def answer_ppl(model, ans_ids, mem_kv, mem_mask):
@@ -161,7 +166,7 @@ def make_dialog_engine(num_rounds: int = 10,
         labels, inputs = derive_labels_and_inputs(ans_ids, SEP_ID, PAD_ID)
         logits = model.decode_logits_cached(inputs, att_mask, mem_kv,
                                             mem_mask)
-        nll = teacher_forced_nll(logits, labels, PAD_ID)
+        nll = teacher_forced_nll(logits, labels, PAD_ID, model.vocab_tp)
         ans_len = (inputs != PAD_ID).sum(-1)
         ppl = torch.exp(nll.sum(-1) / ans_len.clamp(min=1))
         return ppl, inputs, ans_len

@@ -6,6 +6,11 @@ K/V accumulate in a [B, H, max_steps + 1, Dh] cache written in place.
 Sampling semantics: temperature, n-gram blocking against the question
 history, top-k / nucleus filtering (or the fused top-k sampler), then a
 multinomial draw; PAD after the first EOS.
+
+Under tensor parallelism the step's logits are the full vocab (gathered by
+the model), every rank of the model group samples them, and the model
+group's rank 0's tokens are broadcast, so that no rank can drift; ``done``
+follows from the tokens, so every rank leaves the loop on the same step.
 """
 
 from __future__ import annotations
@@ -36,10 +41,12 @@ class DecodeSettings(NamedTuple):
 
 
 def init_cache(dec_config, batch: int, max_len: int, dtype=torch.float32,
-               device="cuda"):
-    """Per-layer zero KV caches (updated in place by the decode steps)."""
-    h = dec_config.num_attention_heads
-    dh = dec_config.hidden_size // h
+               device="cuda", heads: Optional[int] = None):
+    """Per-layer zero KV caches (updated in place by the decode steps);
+    ``heads``: the heads a rank computes under tensor parallelism
+    (``model.dec.local_heads``; default all of them)."""
+    dh = dec_config.hidden_size // dec_config.num_attention_heads
+    h = dec_config.num_attention_heads if heads is None else heads
     shape = (batch, h, max_len, dh)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -50,7 +57,7 @@ def sample_sequence(step_fn, generator: torch.Generator, batch: int, caches,
                     settings: DecodeSettings,
                     ngram_source: Optional[torch.Tensor] = None,
                     bos_id: int = CLS_ID, eos_id: int = SEP_ID,
-                    device="cuda"):
+                    device="cuda", tp=None):
     """Run up to ``settings.max_steps`` cached decode steps.
 
     ``step_fn(token_ids [B,1], pos, caches) -> logits [B,V]`` is the decode
@@ -60,7 +67,8 @@ def sample_sequence(step_fn, generator: torch.Generator, batch: int, caches,
 
     The loop stops early once every row has emitted EOS: the skipped steps
     would only produce tokens that pad_after_eos discards.  That test reads
-    ``done`` on the host, one device sync per step.
+    ``done`` on the host, one device sync per step.  ``tp``: the model
+    group whose rank 0's tokens every rank takes (a broadcast a step).
     """
     tokens = torch.zeros((batch, settings.max_steps + 1), dtype=torch.long,
                          device=device)
@@ -80,6 +88,8 @@ def sample_sequence(step_fn, generator: torch.Generator, batch: int, caches,
             logits = top_k_top_p_filter(logits, settings.top_k,
                                         settings.top_p)
             nxt = sample_token(generator, logits)
+        if tp is not None:
+            nxt = tp.broadcast(nxt)
         tokens[:, step + 1] = nxt
         done |= nxt == eos_id
         if bool(done.all()):

@@ -71,7 +71,8 @@ def make_fgsm_scorer(model: GSTVisualDialog, epsilon: float = 1.0):
             chunk["enc_segments"], chunk["enc_att_mask"],
             chunk["enc_image_mask"], dec_inputs, chunk["dec_att_mask"])
         # the mean over every position, pads included (reference :127)
-        per_sample = teacher_forced_nll(logits, labels, PAD_ID).mean(-1)
+        per_sample = teacher_forced_nll(logits, labels, PAD_ID,
+                                        model.vocab_tp).mean(-1)
         return (per_sample * gt_relevance.float()).sum()
 
     def nll_grad(image_feat, chunk, gt_relevance):
@@ -207,8 +208,9 @@ def make_mlm_fill(model: GSTVisualDialog):
                          for a in (input_ids, token_type_ids,
                                    attention_mask))
         with torch.no_grad():
-            return model.pretrain_scores(ids, image["feat"][:1],
-                                         image["loc"][:1], seg, att,
-                                         image["mask"][:1])[0]
+            # the whole vocab, gathered under a sharded one
+            return model.full_logits(model.pretrain_scores(
+                ids, image["feat"][:1], image["loc"][:1], seg, att,
+                image["mask"][:1])[0])
 
     return fill

@@ -12,7 +12,10 @@ Data parallel across ranks (``dp``, a :class:`gstx_torch.core.mesh.
 DataParallel`): each chunk's rows, padded to a multiple of the ranks,
 split over them (``gstx/eval/rank_gen.py:115-125``); each rank scores its
 rows and rank 0 gathers a batch's scores, computes the metrics and alone
-returns them.
+returns them.  Under tensor parallelism ``dp`` is the data group (the
+ranks that hold the same shard) and the model's model group computes each
+of a rank's rows together; the data group's rank 0 of every model rank
+gathers the scores.
 
 Differences from the JAX evaluator, none of which changes a score:
   * each batch goes to the device once: its flattened text rows, and its
@@ -62,7 +65,7 @@ def make_chunk_scorer(model: GSTVisualDialog) -> Callable:
             chunk["enc_input_ids"], chunk["enc_image_feat"],
             chunk["enc_image_loc"], chunk["enc_segments"],
             chunk["enc_att_mask"], chunk["enc_image_mask"], dec_inputs,
-            chunk["dec_att_mask"]), dec_ids, PAD_ID)
+            chunk["dec_att_mask"]), dec_ids, PAD_ID, model.vocab_tp)
 
     return score_chunk
 

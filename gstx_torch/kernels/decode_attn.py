@@ -139,7 +139,10 @@ def maybe_quant_decode_attention(q, k_i8, v_i8, mask
     None (the caller runs its unfused ops).  The JAX gate
     (``decode_attn.py:108-122``) also requires the fused-FFN switch, a TPU
     and no tensor parallelism; the port's fused kernels are always on at
-    bf16 and it has no mesh, so those conditions have no counterpart."""
+    bf16, so the first has no counterpart.  The last is GSPMD's: a
+    ``pallas_call`` is opaque to it.  The port shards by head explicitly
+    (:mod:`gstx_torch.models.tensor_parallel`): a rank holds whole heads of
+    the memory, and the kernel runs unchanged on them."""
     if not _KERNEL_ENABLED:
         return None
     if q.shape[2] != 1:

@@ -36,6 +36,7 @@ from torch import nn
 
 from gstx_torch.core.config import DecoderConfig
 from gstx_torch.kernels import decode_attn as kdecode
+from gstx_torch.models import tensor_parallel as tpar
 from gstx_torch.models.layers import (
     MASK_VALUE,
     DenseLN,
@@ -113,6 +114,7 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.num_heads = cfg.num_attention_heads
+        self.head_range = None  # (first, all) under tensor parallelism
         self.attention = _Attention(d, eps)
         self.crossattention = _Attention(d, eps)
         self.intermediate = Intermediate(d, cfg.intermediate_size)
@@ -129,7 +131,7 @@ class DecoderLayer(nn.Module):
 
     def _self_block(self, x, q, k, v, mask, train=None):
         ctx = attend(q, k, v, mask, train, self.attn_dropout,
-                     site_of(self, 0))
+                     site_of(self, 0), self.head_range)
         return _project_ln(merge_heads(ctx), self.attention.output, x,
                            train, self.hidden_dropout, site_of(self, 1))
 
@@ -149,7 +151,7 @@ class DecoderLayer(nn.Module):
         else:
             mem_k, mem_v = mem
             ctx = attend(q, mem_k, mem_v, mem_mask, train, self.attn_dropout,
-                         site_of(self, 2))
+                         site_of(self, 2), self.head_range)
         return _project_ln(merge_heads(ctx), self.crossattention.output, x,
                            train, self.hidden_dropout, site_of(self, 3))
 
@@ -244,10 +246,19 @@ class GSTDecoderModel(nn.Module):
         self.bert.embeddings = embeddings
         self.bert.encoder = _DecoderStack(cfg)
         self.lm_head = LMHead(cfg)
+        # the group the LM head's vocab rows are sharded over, if any
+        # (gstx_torch.models.tensor_parallel.shard_model_)
+        self.vocab_tp = None
 
     @property
     def layers(self):
         return self.bert.encoder.layer
+
+    @property
+    def local_heads(self) -> int:
+        """The attention heads this rank computes (all of them in one
+        process), the head count of its KV caches."""
+        return self.layers[0].num_heads
 
     def lm_logits(self, hidden):
         """hidden @ lm_weight^T + bias as float32 logits.  JAX keeps them f32
@@ -256,9 +267,11 @@ class GSTDecoderModel(nn.Module):
         sampling, so the operands are upcast.  (bf16 operands are exact in
         f32, so the products equal the JAX bf16 path's.)  The weight is
         rounded to the activation dtype first, as JAX's bf16 path casts
-        its f32 parameter."""
+        its f32 parameter.  Under a sharded vocab (``vocab_tp``) they are
+        this rank's slice of the vocab."""
         w = self.lm_head.decoder.weight.to(hidden.dtype)
-        return F.linear(hidden.float(), w.float()) + self.lm_head.bias.float()
+        h = tpar.copy_to_model(hidden.float(), self.vocab_tp)
+        return F.linear(h, w.float()) + self.lm_head.bias.float()
 
     def forward(self, x, attention_mask: Optional[torch.Tensor], memory,
                 memory_mask: Optional[torch.Tensor],

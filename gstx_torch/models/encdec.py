@@ -17,6 +17,16 @@ with :func:`precast_` computes in bf16.  Both give the same forward, bit
 for bit.  Training: :meth:`GSTVisualDialog.score` with ``train``
 (:class:`gstx_torch.models.layers.Training`) and
 :func:`teacher_forced_loss`.
+
+Tensor parallelism: ``GSTVisualDialog(..., tp=group)`` builds the full
+model and keeps rank ``group.rank``'s shard of it
+(:func:`gstx_torch.models.tensor_parallel.shard_model_`);
+``load_state_dict`` takes a full state dict and slices it, and
+``state_dict()`` gives the rank's slices under the reference names.  The
+teacher-forced logits are then the rank's slice of the vocab (when the
+vocab divides by the degree: ``vocab_tp``), which the losses below take
+with ``tp=model.vocab_tp``; :meth:`GSTVisualDialog.decode_step` returns
+the full logits, gathered.
 """
 
 from __future__ import annotations
@@ -24,11 +34,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from gstx_torch.core import mesh
 from gstx_torch.core.config import DecoderConfig, EncoderConfig
 from gstx_torch.core.device import resolve_device
+from gstx_torch.models import tensor_parallel as tpar
 from gstx_torch.models.decoder import GSTDecoderModel
 from gstx_torch.models.encoder import GSTEncoderModel
 from gstx_torch.models.heads import PreTrainingHeads
@@ -53,11 +64,14 @@ class GSTVisualDialog(nn.Module):
     weights with ``load_state_dict`` afterwards.  ``use_decoder=False``
     builds the encoder and its heads only (no ``vlfusion.*`` or
     ``decoder.*``).  ``dtype``: the compute dtype (see the module's
-    docstring)."""
+    docstring).  ``tp``: a :class:`gstx_torch.core.mesh.ModelGroup` of
+    more than one rank, whose rank's shard of the seeded model this one
+    keeps (the seeded weights are those of one process)."""
 
     def __init__(self, enc_config: EncoderConfig, dec_config: DecoderConfig,
                  device="cuda", seed: int = 0, use_decoder: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 tp: Optional[mesh.ModelGroup] = None):
         super().__init__()
         self.enc_config, self.dec_config = enc_config, dec_config
         self.use_decoder = use_decoder
@@ -84,6 +98,44 @@ class GSTVisualDialog(nn.Module):
         self.bert.embeddings.compute_dtype = dtype
         self.bert.v_embeddings.compute_dtype = dtype
         number_dropout_sites(self)
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        # the group the vocab is sharded over: None in one process and
+        # when the vocab does not divide by the degree
+        self.vocab_tp = None
+        if self.tp is not None:
+            self._full_shapes = {k: v.shape
+                                 for k, v in self.state_dict().items()}
+            self.vocab_tp = tpar.shard_model_(self, self.tp)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``; under tensor parallelism a full
+        tensor is sliced to the rank's shard first (a tensor already of
+        the shard's shape loads as it is)."""
+        if self.tp is not None:
+            own = self.state_dict()
+            warned = set()
+            state_dict = {
+                k: v if k not in own or v.shape == own[k].shape
+                else mesh.shard_tensor(k, v, self.tp.size, self.tp.rank,
+                                       warned)
+                for k, v in state_dict.items()}
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+    def full_state_dict(self):
+        """The full tensors on the host: the state dict itself in one
+        process; under tensor parallelism every rank's shards gathered
+        (a collective of the model group)."""
+        if self.tp is None:
+            return {k: v.detach().cpu() for k, v in self.state_dict().items()}
+        return mesh.gather_state_dict(self.state_dict(), self.tp,
+                                      self._full_shapes)
+
+    def full_logits(self, logits):
+        """The full-vocab logits of this model's teacher-forced logits
+        (gathered over ``vocab_tp``)."""
+        return tpar.gather_vocab(logits, self.vocab_tp)
 
     def f32_params(self):
         """The parameters :func:`precast_` leaves f32 besides the
@@ -221,11 +273,12 @@ class GSTVisualDialog(nn.Module):
     def decode_step(self, token_ids, pos: int, caches, memory_kv,
                     memory_add_mask):
         """One decode step: token_ids [B, 1] at absolute position ``pos``.
-        Returns [B, vocab] float32 logits; ``caches`` are updated in place."""
+        Returns [B, vocab] float32 logits, the full vocab (gathered under a
+        sharded one); ``caches`` are updated in place."""
         positions = torch.full_like(token_ids, pos)
         x = self._embed_dec(token_ids, positions=positions)
         h = self.dec.step(x, pos, caches, memory_kv, memory_add_mask)
-        return self.dec.lm_logits(h)[:, 0, :]
+        return self.full_logits(self.dec.lm_logits(h)[:, 0, :])
 
 
 def precast_(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
@@ -260,37 +313,39 @@ def derive_labels_and_inputs(dec_input_ids, eos_id: int, pad_id: int
     return labels, inputs
 
 
-def teacher_forced_nll(logits, labels, pad_id: int = 0) -> torch.Tensor:
+def teacher_forced_nll(logits, labels, pad_id: int = 0,
+                       tp=None) -> torch.Tensor:
     """Per-position CE with ignore_index=pad; [B, L] float32, 0 at ignored
-    positions."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    positions.  ``tp``: the group the logits' vocab is sharded over
+    (``model.vocab_tp``; the vocab-parallel cross entropy)."""
+    nll = -tpar.token_log_probs(logits, labels, tp)
     return torch.where(labels == pad_id, 0.0, nll)
 
 
 def teacher_forced_loss(logits, labels, pad_id: int = 0,
-                        denom=None) -> torch.Tensor:
+                        denom=None, tp=None) -> torch.Tensor:
     """Mean CE over non-pad label positions (torch CrossEntropyLoss with
     ignore_index=pad, reduction='mean'; ``gstx/models/encdec.py:245-251``):
     a scalar, 0 when every label is pad.  ``denom``, when given, replaces
     the count of non-pad labels (at least 1): a data-parallel rank divides
-    its rows' sum by the count over every rank's rows."""
-    nll = teacher_forced_nll(logits, labels, pad_id)
+    its rows' sum by the count over every rank's rows.  ``tp``: as
+    :func:`teacher_forced_nll`'s."""
+    nll = teacher_forced_nll(logits, labels, pad_id, tp)
     if denom is None:
         denom = (labels != pad_id).sum().clamp(min=1)
     return nll.sum() / denom
 
 
-def candidate_log_likelihood(logits, dec_input_ids, pad_id: int = 0
-                             ) -> torch.Tensor:
+def candidate_log_likelihood(logits, dec_input_ids, pad_id: int = 0,
+                             tp=None) -> torch.Tensor:
     """Sum log-likelihood of each candidate answer under teacher forcing,
     the generative ranking score (``gstx/models/encdec.py:254``, reference
     evaluate_gen.py:94-107): [B] float32.  Targets are the left-shifted
     decoder inputs; PAD targets count 0.  The log-softmax is taken in f32;
     the caller's f32 logits are not copied, and the [B, L, V] log-softmax
-    lives only until the targets are gathered from it."""
+    lives only until the targets are gathered from it.  ``tp``: as
+    :func:`teacher_forced_nll`'s."""
     targets = torch.zeros_like(dec_input_ids)
     targets[:, :-1] = dec_input_ids[:, 1:]
-    tok = F.log_softmax(logits.float(), dim=-1).gather(
-        -1, targets[..., None])[..., 0]
+    tok = tpar.token_log_probs(logits, targets, tp)
     return torch.where(targets == pad_id, 0.0, tok).sum(-1)

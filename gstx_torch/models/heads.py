@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gstx_torch.core.config import EncoderConfig
+from gstx_torch.models import tensor_parallel as tpar
 from gstx_torch.models.layers import (ACT2FN, LayerNorm, Training, linear,
                                       site_of)
 
@@ -66,6 +67,9 @@ class PreTrainingHeads(nn.Module):
         self.predictions = Predictions(cfg, word_embeddings)
         self.bi_seq_relationship = nn.Linear(cfg.bi_hidden_size, 2)
         self.imagePredictions = ImagePredictions(cfg)
+        # the group the tied MLM projection's vocab rows are sharded over,
+        # if any (gstx_torch.models.tensor_parallel.shard_model_)
+        self.vocab_tp = None
 
     def seq_relationship(self, pooled_t, pooled_v,
                          train: Optional[Training] = None):
@@ -84,12 +88,13 @@ class PreTrainingHeads(nn.Module):
     def forward(self, sequence_t, sequence_v, pooled_t, pooled_v,
                 train: Optional[Training] = None):
         """Returns (prediction_t [B, L, vocab] f32, prediction_v
-        [B, R, v_target], seq_relationship [B, 2])."""
+        [B, R, v_target], seq_relationship [B, 2]); under a sharded vocab
+        (``vocab_tp``) prediction_t is this rank's slice of the vocab."""
         p = self.predictions
-        h = p.transform(sequence_t)
+        h = tpar.copy_to_model(p.transform(sequence_t).float(),
+                               self.vocab_tp)
         # the tied projection runs in f32, as the JAX embed_attend
-        prediction_t = F.linear(h.float(), p.decoder.weight.float()) \
-            + p.bias.float()
+        prediction_t = F.linear(h, p.decoder.weight.float()) + p.bias.float()
         ip = self.imagePredictions
         prediction_v = linear(ip.transform(sequence_v), ip.decoder)
         return prediction_t, prediction_v, self.seq_relationship(
@@ -101,17 +106,20 @@ class PreTrainingHeads(nn.Module):
 # ---------------------------------------------------------------------- #
 
 
-def masked_lm_loss(prediction_t, mlm_labels, denom=None) -> torch.Tensor:
+def masked_lm_loss(prediction_t, mlm_labels, denom=None,
+                   tp=None) -> torch.Tensor:
     """Cross-entropy with ignore_index=-1, the mean over the labelled
     positions in f32 (vilbert_dialog.py:1444,1504-1507); 0 when every label
     is -1, where ``F.cross_entropy`` gives NaN.  ``denom``, as the heads'
     other losses take it, replaces the count the mean divides by (a
-    data-parallel rank's: the count over every rank's rows)."""
-    logits = prediction_t.reshape(-1, prediction_t.shape[-1]).float()
+    data-parallel rank's: the count over every rank's rows).  ``tp``: the
+    group ``prediction_t``'s vocab is sharded over (the vocab-parallel
+    cross entropy, :func:`gstx_torch.models.tensor_parallel.
+    token_log_probs`)."""
+    logits = prediction_t.reshape(-1, prediction_t.shape[-1])
     labels = mlm_labels.reshape(-1)
     valid = labels != -1
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = -tpar.token_log_probs(logits, torch.where(valid, labels, 0), tp)
     nll = torch.where(valid, nll, 0.0)
     if denom is None:
         denom = valid.sum().clamp(min=1)

@@ -20,6 +20,13 @@ anything else runs the unfused ops.
 ``gstx_torch/kernels/attention.py`` when its switch is on (off by default,
 as in the reference).
 
+Tensor parallelism (:mod:`gstx_torch.models.tensor_parallel`): an
+attention's ``num_heads`` are its rank's heads and ``head_range`` says
+which of all; the fused kernels decline a sharded site, as JAX's gate
+declines under a ``model`` axis (``gstx/kernels/ffn.py:50-105``): the
+row-parallel product is a partial sum that must be all-reduced before the
+bias, the residual and the LayerNorm these kernels fuse into it.
+
 Training (``gstx/models/layers.py:46-91,193-351``): a forward given a
 :class:`Training` applies dropout at the JAX package's sites and rates, and
 recomputes under its remat policy (:func:`layer_call`, :func:`region`).
@@ -44,6 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import ffn as kffn
+from gstx_torch.models import tensor_parallel as tpar
 
 MASK_VALUE = -10000.0  # reference vilbert_dialog.py:1364
 
@@ -53,7 +61,11 @@ ACT2FN = {"gelu": F.gelu, "relu": F.relu, "swish": F.silu}
 
 
 def linear(x, layer: nn.Linear):
-    """``layer(x)`` computed in x's dtype (weights cast at use, as PDense)."""
+    """``layer(x)`` computed in x's dtype (weights cast at use, as PDense);
+    a tensor-parallel slice (:mod:`gstx_torch.models.tensor_parallel`)
+    computes as its class does."""
+    if tpar.sharded(layer):
+        return layer(x)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -243,7 +255,7 @@ def merge_heads(x):
 
 def attend(q, k, v, mask: Optional[torch.Tensor],
            train: Optional[Training] = None, rate: float = 0.0,
-           site: int = 0):
+           site: int = 0, heads=None):
     """Scaled dot-product attention over [B, H, L, Dh] tensors.
 
     The kernel gate first (``layers.py:210-216``): with the attention switch
@@ -259,7 +271,10 @@ def attend(q, k, v, mask: Optional[torch.Tensor],
     f32 probabilities are dropped at ``site`` and scaled by 1/keep
     (``layers.py:255-257``); they are cast to the activation dtype for the
     PV product, whose result has that dtype.  ``mask`` is additive,
-    broadcastable to [B, H, Lq, Lk]."""
+    broadcastable to [B, H, Lq, Lk].  ``heads``, under tensor parallelism:
+    (first head, all heads) of the rank's heads; the dropout mask is drawn
+    at the full [B, all heads, Lq, Lk] shape and the rank keeps its heads,
+    so the ranks drop what one process would."""
     if not dropping(train, rate):
         fused = kattn.maybe_fused_attention(q, k, v, mask)
         if fused is not None:
@@ -271,31 +286,38 @@ def attend(q, k, v, mask: Optional[torch.Tensor],
     probs = torch.softmax(scores, dim=-1)
     if dropping(train, rate):
         keep = 1.0 - rate
-        probs = probs * train.keep_mask(probs.shape, probs.device, keep,
-                                        site) / keep
+        shape = probs.shape
+        if heads is not None:
+            shape = (shape[0], heads[1]) + tuple(shape[2:])
+        kept = train.keep_mask(shape, probs.device, keep, site)
+        if heads is not None:
+            kept = kept[:, heads[0]:heads[0] + probs.shape[1]]
+        probs = probs * kept / keep
     # rebinding frees the f32 probabilities before the product
     probs = probs.to(q.dtype)
     return torch.matmul(probs, v)
 
 
 def attention_region(train: Optional[Training], q, k, v, mask,
-                     rate: float = 0.0, site: int = 0):
+                     rate: float = 0.0, site: int = 0, heads=None):
     """:func:`attend` as a :func:`region`: under ``small`` the context is
     kept and the scores and probabilities are recomputed."""
     return region(train, lambda q_, k_, v_, m_: attend(
-        q_, k_, v_, m_, train, rate, site), q, k, v, mask)
+        q_, k_, v_, m_, train, rate, site, heads), q, k, v, mask)
 
 
 def _fusable(x, d, inner, train: Optional[Training] = None,
-             rate: float = 0.0) -> bool:
+             rate: float = 0.0, sharded: bool = False) -> bool:
     """The layer-level gate of ``maybe_fused_*``: the kernels' switch
     (``kffn.enable``, set from ``-use_pallas``) first, then no active
     dropout at the site (``not deterministic and dropout_rate > 0``
     declines, ``gstx/kernels/ffn.py:401,419``), then bf16 activations at
     widths the kernels take (``widths_taken``, the predicate their
     wrappers raise by); elsewhere the caller runs the unfused ops, as the
-    reference does where its gate returns None."""
-    return kffn.is_enabled() and not dropping(train, rate) \
+    reference does where its gate returns None.  ``sharded``: the site's
+    projection is a tensor-parallel slice, which the kernels decline (see
+    the module's docstring)."""
+    return kffn.is_enabled() and not sharded and not dropping(train, rate) \
         and x.dtype == torch.bfloat16 and kffn.widths_taken(d, inner)
 
 
@@ -306,7 +328,7 @@ def dense_ln(x, dense: nn.Linear, ln: LayerNorm, residual,
     eligible.  The kernel's bias is rounded to the activation dtype, as the
     unfused projection's is, so an f32 parameter under a bf16 compute dtype
     gives what the same parameter cast once to bf16 gives."""
-    if _fusable(x, *dense.weight.shape, train, rate):
+    if _fusable(x, *dense.weight.shape, train, rate, tpar.sharded(dense)):
         dt = x.dtype
         return kffn.fused_dense_ln(
             x.contiguous(), dense.weight.to(dt), dense.bias.to(dt).float(),
@@ -329,7 +351,7 @@ def feed_forward(x, intermediate: nn.Linear, output: nn.Linear,
     intermediate(x)))) + x)``, through the fused kernel when eligible (its
     biases rounded as :func:`dense_ln`'s)."""
     if activation == "gelu" and _fusable(x, *output.weight.shape, train,
-                                         rate):
+                                         rate, tpar.sharded(output)):
         dt = x.dtype
         return kffn.fused_ffn(
             x.contiguous(), intermediate.weight.to(dt),
@@ -392,6 +414,7 @@ class SelfAttention(nn.Module):
                  hidden_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.head_range = None  # (first, all) under tensor parallelism
         self.attn_dropout, self.hidden_dropout = attn_dropout, hidden_dropout
         inner = num_heads * head_dim
         self.self = Projections(d_model, inner)
@@ -400,7 +423,7 @@ class SelfAttention(nn.Module):
     def forward(self, x, mask, train: Optional[Training] = None):
         q, k, v = (split_heads(t, self.num_heads) for t in self.self(x))
         ctx = attention_region(train, q, k, v, mask, self.attn_dropout,
-                               site_of(self))
+                               site_of(self), self.head_range)
         return self.output(merge_heads(ctx), x, train, self.hidden_dropout)
 
 

@@ -52,6 +52,7 @@ class BiAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.num_heads = cfg.bi_num_attention_heads
+        self.head_range = None  # (first, all) under tensor parallelism
         bi = cfg.bi_hidden_size
         for name in ("query1", "key1", "value1"):
             setattr(self, name, nn.Linear(cfg.v_hidden_size, bi))
@@ -71,10 +72,10 @@ class BiAttention(nn.Module):
         # queries over text K/V at the text rate (two_stream.py:79-91)
         ctx_for_text = attention_region(train, q2, k1, v1, v_mask,
                                         self.v_attn_dropout,
-                                        site_of(self, 0))
+                                        site_of(self, 0), self.head_range)
         ctx_for_visual = attention_region(train, q1, k2, v2, t_mask,
                                           self.t_attn_dropout,
-                                          site_of(self, 1))
+                                          site_of(self, 1), self.head_range)
         return merge_heads(ctx_for_visual), merge_heads(ctx_for_text)
 
 

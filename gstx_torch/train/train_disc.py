@@ -98,7 +98,7 @@ def row_losses(model: GSTVisualDialog, rows, config: GSTConfig,
         rows["tokens"], rows["image_feat"], rows["image_loc"],
         rows["segments"], att_mask, rows["image_mask"], train=train)
     out = {"lm_loss": masked_lm_loss(pred_t, rows["mask"],
-                                     denoms.get("lm_loss")),
+                                     denoms.get("lm_loss"), model.vocab_tp),
            "img_loss": masked_img_loss(
                pred_v, rows["image_target"], rows["image_label"],
                model.enc_config.predict_feature, denoms.get("img_loss")),
@@ -165,7 +165,8 @@ def load_start_checkpoint(config: GSTConfig, model: GSTVisualDialog,
     if config.continue_training and "step" in raw and \
             "optimizer_state_dict" in raw and config.mode in path:
         model.load_state_dict(sd, strict=True)
-        optimizer.load_state_dict(raw["optimizer_state_dict"])
+        optimizer.load_state_dict(ckpt_lib.shard_optimizer_state(
+            raw["optimizer_state_dict"], model))
         return (int(raw["step"]), os.path.basename(
             path.rstrip("/")).endswith("_step.ckpt"))
     ckpt_lib.load_state(model, sd, path)
@@ -182,17 +183,22 @@ def train_disc(config: GSTConfig, dataset, max_steps: Optional[int] = None,
     os.makedirs(config.save_path, exist_ok=True)
     num_iter_epoch = max(1, len(dataset) // config.batch_size)
     device = torch.device(device)
-    dp = mesh.training_data_parallel(config.data_parallel, device)
+    # the 2-D data x model layout without the decoder's dimensions
+    # (gstx/cli/train_disc.py:66-73)
+    mesh.validate_model_parallel(config.encoder_config(), None,
+                                 config.model_parallel)
+    axes = mesh.make_layout(config.data_parallel, config.model_parallel,
+                            device)
     model, optimizer = train_gen.init_model_and_state(
         config, num_iter_epoch * config.num_epochs, device,
-        use_decoder=False, warmup_steps=DISC_WARMUP_STEPS)
+        use_decoder=False, warmup_steps=DISC_WARMUP_STEPS, tp=axes.tp)
     start = (0, False)
     if config.start_path:
         start = load_start_checkpoint(config, model, optimizer)
     step_fn = make_disc_train_step(
         model, optimizer, config,
-        config.remat_policy if config.remat else None, dp)
-    loader = train_gen.striped_loader(config, dataset)
+        config.remat_policy if config.remat else None, axes.dp)
+    loader = train_gen.striped_loader(config, dataset, axes)
     train_gen.run_training(
         config, model, optimizer, step_fn, loader, num_iter_epoch, start,
         "log_disc.txt",

@@ -14,6 +14,14 @@ CPU ``torch.Generator`` seeded from ``SeedSequence([seed, i])`` (the JAX
 package folds ``i`` into its key), so a resumed run replays exactly what
 the uninterrupted one would have drawn.  Torch's generators are not JAX's
 threefry, so the rows and masks differ from the JAX package's.
+
+Tensor parallelism (``-model_parallel`` > 1, :func:`gstx_torch.core.mesh.
+make_layout`): the ranks form ``dp`` replicas of ``mp`` shards.  The
+data axis (the batch's gather, the gradients' all-reduce, the dropout
+seed's offset) is the data group of the ranks that hold the same shard;
+the ranks of one model group read the same stripe, draw the same rows and
+the same dropout masks, and compute them together.  Checkpoints hold full
+tensors (:func:`gstx_torch.core.checkpoint.save_checkpoint`).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from gstx_torch.core import checkpoint as ckpt_lib
 from gstx_torch.core import mesh
 from gstx_torch.core.config import PAD_ID, GSTConfig
 from gstx_torch.core.logging import Logger, MetricsWriter
-from gstx_torch.core.mesh import DataParallel
+from gstx_torch.core.mesh import Axes, DataParallel
 from gstx_torch.core.profiling import trace
 from gstx_torch.data.loader import DataLoader, batch_iter
 from gstx_torch.models.encdec import GSTVisualDialog, teacher_forced_loss
@@ -92,7 +100,8 @@ def row_loss(model: GSTVisualDialog, rows, train: Optional[Training],
         rows["enc_input_ids"], rows["enc_image_feat"], rows["enc_image_loc"],
         rows["enc_segments"], rows["enc_att_mask"], rows["enc_image_mask"],
         rows["dec_input_ids"], rows["dec_att_mask"], train=train)
-    return teacher_forced_loss(logits, rows["dec_labels"], denom=denom)
+    return teacher_forced_loss(logits, rows["dec_labels"], denom=denom,
+                               tp=model.vocab_tp)
 
 
 def rank_rows(n: int, dp: Optional[DataParallel]):
@@ -107,9 +116,11 @@ def rank_rows(n: int, dp: Optional[DataParallel]):
 
 
 def rank_seed(seed: int, dp: Optional[DataParallel]) -> int:
-    """The dropout seed of this rank's rows: the step's seed plus the rank,
-    so that the ranks' masks differ and rank 0's are the single process's
-    (a function of (seed, iteration, rank); a resume replays it)."""
+    """The dropout seed of this rank's rows: the step's seed plus the
+    rank on the data axis, so that the replicas' masks differ and replica
+    0's are the single process's (a function of (seed, iteration, data
+    rank); a resume replays it).  ``dp`` is the data group, never the
+    world: the ranks of one model group must draw the same masks."""
     return seed if dp is None else seed + dp.rank
 
 
@@ -171,15 +182,17 @@ def make_train_step(model: GSTVisualDialog, optimizer: AdamW,
 
 def init_model_and_state(config: GSTConfig, t_total: int, device,
                          use_decoder: bool = True,
-                         warmup_steps: Optional[int] = None):
+                         warmup_steps: Optional[int] = None, tp=None):
     """The model from a seed (bf16 compute over f32 parameters under
-    ``-dtype bfloat16``; encoder-only unless ``use_decoder``) and its
-    optimizer (warmup ``warmup_steps``, by default ``-warmup_steps``)."""
+    ``-dtype bfloat16``; encoder-only unless ``use_decoder``; the rank's
+    shard of it under the model group ``tp``) and its optimizer (warmup
+    ``warmup_steps``, by default ``-warmup_steps``), whose moments are
+    shaped as the rank's parameters."""
     enc_cfg = config.encoder_config()
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else None
     model = GSTVisualDialog(enc_cfg, config.decoder_config(), device=device,
                             seed=config.seed, use_decoder=use_decoder,
-                            dtype=dtype)
+                            dtype=dtype, tp=tp)
     optimizer = AdamW(model.named_parameters(), config.lr, config.image_lr,
                       config.warmup_steps if warmup_steps is None
                       else warmup_steps, t_total, config.min_lr,
@@ -210,7 +223,8 @@ def load_start_checkpoint(config: GSTConfig, model: GSTVisualDialog,
         model.load_state_dict(sd, strict=full)
         if "step" in raw and "optimizer_state_dict" in raw and \
                 config.mode in path:
-            optimizer.load_state_dict(raw["optimizer_state_dict"])
+            optimizer.load_state_dict(ckpt_lib.shard_optimizer_state(
+                raw["optimizer_state_dict"], model))
             return (int(raw["step"]), os.path.basename(
                 path.rstrip("/")).endswith("_step.ckpt"))
         return 0, False
@@ -236,18 +250,42 @@ def checkpoint_saver(save_path: str, model, optimizer,
     return save
 
 
-def striped_loader(config: GSTConfig, dataset) -> DataLoader:
+def striped_loader(config: GSTConfig, dataset,
+                   axes: Optional[Axes] = None) -> DataLoader:
     """The trainers' loader: shuffled, and in a multi-process run this
-    rank's stripe of the shuffled order in batches of ``batch_size /
-    ranks``, every rank the same number of batches an epoch
-    (``gstx/train/train_gen.py:203-213``)."""
-    count = mesh.process_count()
+    replica's stripe of the shuffled order in batches of ``batch_size /
+    replicas``, every replica the same number of batches an epoch
+    (``gstx/train/train_gen.py:203-213``).  The replicas are the data axis
+    of ``axes`` (the ranks when it is None): the ranks of one model group
+    read the same stripe."""
+    if axes is None:
+        index, count = mesh.process_index(), mesh.process_count()
+    else:
+        index, count = axes.data_rank, axes.data_size
     return DataLoader(dataset,
                       batch_size=mesh.local_batch_size(config.batch_size,
                                                        count),
                       shuffle=True, num_workers=config.num_workers,
-                      seed=config.seed, process_index=mesh.process_index(),
+                      seed=config.seed, process_index=index,
                       process_count=count, even_stripes=True)
+
+
+def grad_norms(model) -> Dict[str, float]:
+    """Each parameter's gradient norm, by name.  Under tensor parallelism
+    a sharded parameter's squares are summed over the model group, and a
+    replicated one's norm is its own (it is the same on every rank), so
+    each counts once (a collective of the model group)."""
+    tp = getattr(model, "tp", None)
+    out = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        sq = p.grad.float().square().sum()
+        if tp is not None and mesh.sharded_dim(
+                name, model._full_shapes[name], tp.size) is not None:
+            sq = tp.all_reduce(sq)
+        out[name] = float(sq.sqrt())
+    return out
 
 
 def sync(device):
@@ -309,10 +347,7 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
                 for k, v in losses.items():
                     stats_out["losses"].setdefault(k, []).append(float(v))
                 if not stats_out["grad_norms"]:
-                    stats_out["grad_norms"] = {
-                        n: float(p.grad.float().norm())
-                        for n, p in model.named_parameters()
-                        if p.grad is not None}
+                    stats_out["grad_norms"] = grad_norms(model)
             if primary and iter_id % config.log_every == 0:
                 lr, _ = optimizer.current_lrs()
                 text, record = log_fields(
@@ -354,22 +389,28 @@ def train_gen(config: GSTConfig, dataset, num_iter_epoch: int,
     """The generative training loop (``gstx/train/train_gen.py:139-279``,
     reference train_gen.py:139-358) through :func:`run_training`, whose
     ``stats_out`` it takes (the loss is ``loss``); returns (model,
-    optimizer).  Under a process group every rank trains one replica on
-    its stripe of the data (:func:`make_train_step`)."""
+    optimizer).  Under a process group every replica trains on its stripe
+    of the data (:func:`make_train_step`), each over its model group
+    under ``-model_parallel`` > 1."""
     os.makedirs(config.save_path, exist_ok=True)
     num_iter_epoch = max(1, num_iter_epoch)
     t_total = num_iter_epoch * 100  # train_gen.py:172 (reference :179)
     device = torch.device(device)
-    dp = mesh.training_data_parallel(config.data_parallel, device)
-    model, optimizer = init_model_and_state(config, t_total, device)
+    mesh.validate_model_parallel(config.encoder_config(),
+                                 config.decoder_config(),
+                                 config.model_parallel)
+    axes = mesh.make_layout(config.data_parallel, config.model_parallel,
+                            device)
+    model, optimizer = init_model_and_state(config, t_total, device,
+                                            tp=axes.tp)
     start = (0, False)
     if config.start_path:
         start = load_start_checkpoint(config, model, optimizer)
     step_fn = make_train_step(model, optimizer, config.batch_size,
                               config.batch_multiply,
                               config.remat_policy if config.remat else None,
-                              dp)
-    loader = striped_loader(config, dataset)
+                              axes.dp)
+    loader = striped_loader(config, dataset, axes)
     run_training(
         config, model, optimizer,
         lambda batch, gen: {"loss": step_fn(batch, gen)}, loader,

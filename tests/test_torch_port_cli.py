@@ -382,15 +382,11 @@ def test_gstx_platform_cpu_selects_the_cpu(env, monkeypatch):
                                    ["-model_parallel", "2"],
                                    ["-distributed"]], ids=str)
 def test_multi_device_flags_exit(env, port_vd, flags):
-    """As the JAX CLI: in one process -data_parallel 2 runs as one rank
-    (make_generation_mesh's None for one device) and -distributed alone is
-    a no-op, both writing the plain run's records to the unsharded file;
-    tensor parallelism exits, citing ROADMAP queue 1 item 9b."""
+    """As the JAX CLI: in one process -data_parallel 2 and
+    -model_parallel 2 run as one rank (make_generation_mesh's None for one
+    device) and -distributed alone is a no-op, each writing the plain
+    run's records to the unsharded file."""
     args, cfg, ckpt, _ = env
-    if flags[0] == "-model_parallel":
-        with pytest.raises(SystemExit, match="item 9b, tensor parallelism"):
-            port(args + _base(ckpt) + ["-save_name", "mp.json"] + flags)
-        return
     got = port(args + _base(ckpt) + ["-save_name", "mp.json"] + flags)
     assert got == port_vd
     assert json.load(open(os.path.join(cfg.save_path, "mp.json"))) == got

@@ -464,6 +464,27 @@ def test_quant_decode_kernel_matches_plain(dev, shape, qdtype, mask):
                   kdecode.quant_decode_attention_plain(q, k, v, m))
 
 
+# a rank's heads under -model_parallel 2 (12 / 2 = 6): the decode steps'
+# memory at B = 96 and at the beam's 128 rows, and the encoder's text
+# self-attention (the kernels take the head count at run time)
+@pytest.mark.parametrize("shape", [(96, 6, 293, 64), (128, 6, 293, 64)],
+                         ids=str)
+def test_quant_decode_kernel_on_a_ranks_six_heads(dev, shape):
+    q, k, v, m = _decode_inputs(dev, *shape, torch.bfloat16)
+    m = m.to(torch.bfloat16)
+    _decode_close(kdecode.quant_decode_attention(q, k, v, m),
+                  kdecode.quant_decode_attention_plain(q, k, v, m))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_attention_kernel_on_a_ranks_six_heads(dev, dtype):
+    q, k, v, m = _attn_inputs(dev, 8, 6, 256, 256, 64, dtype, "padding",
+                              split=True)
+    _attn_close(kattn.fused_attention(q, k, v, m),
+                kattn.attention_plain(q, k, v, m), dtype)
+
+
 def test_quant_decode_launch_counter_and_refusals(dev):
     q, k, v, m = _decode_inputs(dev, 2, 3, 40, 64, torch.bfloat16)
     kdecode.reset_launches()

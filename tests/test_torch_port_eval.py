@@ -627,10 +627,10 @@ REFUSALS = [
     ("disc", ["-start_path", ""], "start_path"),
     ("gen", ["-mode", "vd_gen_val"], "vd_eval_val or vd_eval_test"),
     # message None: not refused; as the JAX CLI, in one process
-    # -data_parallel 2 runs as one rank (make_generation_mesh's None) and
-    # -distributed alone is a no-op
+    # -data_parallel 2 and -model_parallel 2 run as one rank
+    # (make_generation_mesh's None) and -distributed alone is a no-op
     ("gen", ["-data_parallel", "2"], None),
-    ("disc", ["-model_parallel", "2"], "item 9b, tensor parallelism"),
+    ("disc", ["-model_parallel", "2"], None),
     ("gen", ["-distributed"], None),
 ]
 

@@ -58,6 +58,7 @@ def test_scan_covers_the_package():
             "gstx_torch/preprocessing/convert_to_store.py",
             "gstx_torch/preprocessing/comp_cos_sim_mat.py",
             "gstx_torch/preprocessing/clip_filtering.py"} <= names
+    assert "gstx_torch/models/tensor_parallel.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(

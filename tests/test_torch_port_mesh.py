@@ -178,13 +178,15 @@ def test_without_a_group(monkeypatch):
     np.testing.assert_array_equal(tmesh.process_shard(5), np.arange(5))
     assert tmesh.init_distributed("cpu") is None
     assert tmesh.data_parallel("cpu") is None
-    assert tmesh.training_data_parallel(-1, "cpu") is None
-    assert tmesh.training_data_parallel(1, "cpu") is None
+    assert tmesh.make_layout(-1, 1, "cpu") == (None, None)
+    assert tmesh.make_layout(1, 1, "cpu") == (None, None)
     with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
-        tmesh.training_data_parallel(2, "cpu")
+        tmesh.make_layout(2, 1, "cpu")
     for dp in (-1, 1, 2, 8):
         cfg = tcfg.GSTConfig(data_parallel=dp)
-        assert tcommon.make_generation_mesh(cfg, torch.device("cpu")) is None
+        assert tmesh.make_layout(cfg.data_parallel, cfg.model_parallel,
+                                 torch.device("cpu"),
+                                 every_rank=False) == (None, None)
     assert tcommon.primary_process_only()
 
 
