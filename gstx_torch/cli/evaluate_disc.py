@@ -8,8 +8,8 @@ encoder-only checkpoint):
     python -m gstx_torch.cli.evaluate_disc -model enc_only_a \\
         -mode vd_eval_val -start_path disc.ckpt -save_path out/ ...
 
-Flags, outputs, devices and kernels as
-:mod:`gstx_torch.cli.evaluate_gen`.
+Flags, outputs, devices, kernels and ``-trace_dir`` (a trace of the
+evaluation loop and its spans) as :mod:`gstx_torch.cli.evaluate_gen`.
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ chunks' rows split over the first ``-data_parallel`` ranks (-1: all;
 log and the predictions; with ``-data_parallel 1`` rank 0 evaluates alone.
 With ``-model_parallel M`` the ranks form ``-data_parallel`` replicas of
 M shards (``dp x M`` ranks): the rows split over the replicas and each
-model group computes its rows together.
+model group computes its rows together.  ``-trace_dir`` writes a trace of
+the evaluation loop and its spans (``trace.json``, ``spans.json``;
+:func:`gstx_torch.core.profiling.trace`).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
                                    load_params, parse_config,
                                    primary_process_only)
-from gstx_torch.core import mesh
+from gstx_torch.core import mesh, profiling
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -88,10 +90,11 @@ def run_evaluation(config, dev, dataset_cls, evaluator, use_decoder,
         config.save_path, config.save_name or "performance_log.txt")) \
         if primary else None
     try:
-        result = evaluator(model, batches(), mode=config.mode,
-                           vd_version=config.vd_version,
-                           chunk_size=chunk_size, logger=logger,
-                           stats_out=stats_out, dp=dp)
+        with profiling.trace(config.trace_dir):
+            result = evaluator(model, batches(), mode=config.mode,
+                               vd_version=config.vd_version,
+                               chunk_size=chunk_size, logger=logger,
+                               stats_out=stats_out, dp=dp)
     finally:
         if logger is not None:
             logger.close()

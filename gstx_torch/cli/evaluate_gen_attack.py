@@ -16,7 +16,8 @@ MLM head when the flag is empty.  Batches of one dialog (v1.0; v0.9's 25
 are refused by the loop, as the reference asserts).  Metrics go to
 ``performance_log.txt`` (or ``-save_name``).
 
-Devices, ranks, the bf16 precast and ``-use_pallas`` as in
+Devices, ranks, the bf16 precast, ``-use_pallas`` and ``-trace_dir`` (a
+trace of the evaluation loop and its spans) as in
 :mod:`gstx_torch.cli.evaluate_gen`; the attacker is cast with the victim.
 """
 
@@ -33,7 +34,7 @@ from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
                                    load_params, parse_config,
                                    primary_process_only)
-from gstx_torch.core import mesh
+from gstx_torch.core import mesh, profiling
 from gstx_torch.core.logging import Logger
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.data.visdial import VisdialGenDataset
@@ -118,10 +119,11 @@ def main(argv=None, max_batches=None, device=None, stats_out=None):
         config.save_path, config.save_name or "performance_log.txt")) \
         if primary else None
     try:
-        return evaluate_attack(
-            model, batches(), config, coref_dependency=coref_dependency,
-            text_attack=text_attack, chunk_size=config.num_options,
-            logger=logger, stats_out=stats_out, dp=dp)
+        with profiling.trace(config.trace_dir):
+            return evaluate_attack(
+                model, batches(), config, coref_dependency=coref_dependency,
+                text_attack=text_attack, chunk_size=config.num_options,
+                logger=logger, stats_out=stats_out, dp=dp)
     finally:
         if logger is not None:
             logger.close()

@@ -53,8 +53,7 @@ import torch
 from gstx_torch.cli.common import (apply_runtime_flags, build_model,
                                    build_tokenizer, default_device,
                                    load_params, pad_batch_rows, parse_config)
-from gstx_torch.core import mesh
-from gstx_torch.core.profiling import annotate, trace
+from gstx_torch.core import mesh, profiling
 from gstx_torch.data.loader import DataLoader
 from gstx_torch.decode.dialog_engine import make_dialog_engine
 from gstx_torch.decode.sampler import DecodeSettings
@@ -178,7 +177,9 @@ def _prefetch(src, prepare, depth):
     def work():
         try:
             for idx, batch in src:
-                if not put(prepare(idx, batch)):
+                with profiling.span("gstx:generate.prepare"):
+                    item = prepare(idx, batch)
+                if not put(item):
                     return
         except BaseException as e:  # re-raised below, incl. KeyboardInterrupt
             err.append(e)
@@ -189,7 +190,8 @@ def _prefetch(src, prepare, depth):
                      name="gstx-generate-prefetch").start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("gstx:generate.wait"):
+                item = q.get()
             if item is None:
                 if err:
                     raise err[0]
@@ -222,9 +224,10 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
     preemption kills the process anywhere; the sidecar protocol tolerates
     that through the torn-tail rule of ``_load_sidecar``).  ``device``:
     see :func:`gstx_torch.cli.common.default_device`.  ``stats_out``, a
-    dict, receives the rate windows of the JAX CLI and this run's
-    ``images``, generated non-PAD ``tokens``, ``abnormal`` samples and
-    ``loop_seconds`` (the batch loop's wall time)."""
+    dict, receives this run's ``images``, generated non-PAD ``tokens``,
+    ``abnormal`` samples and ``loop_seconds`` (the batch loop's wall
+    time).  ``-trace_dir`` writes a trace of the batch loop and its spans
+    (:func:`gstx_torch.core.profiling.trace`)."""
     config = parse_config(argv, "gstx_torch dialog generation")
     dev = default_device(device)
     pprint.pprint(config)
@@ -371,7 +374,7 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         return idx, batch, n_valid, host, init_max
 
     def dispatch(idx, batch, n_valid, host, init_max):
-        with annotate("gstx:dispatch_rounds"):
+        with profiling.span("gstx:dispatch_rounds"):
             dev_batch = {k: v.to(dev, non_blocking=True)
                          for k, v in host.items()}
             out = engine(q_model, a_model, dev_batch,
@@ -381,7 +384,7 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
 
     def drain():
         idx, batch, n_valid, out = pending.pop(0)
-        with annotate("gstx:fetch_results"):
+        with profiling.span("gstx:fetch_results"):
             questions = out.questions.cpu().numpy()[:, :n_valid]
             answers = out.answers.cpu().numpy()[:, :n_valid]
             ppls = out.answer_ppl.float().cpu().numpy()[:, :n_valid]
@@ -390,7 +393,8 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
         totals["images"] += n_valid
         totals["tokens"] += int((questions != 0).sum() + (answers != 0).sum())
         totals["abnormal"] += int(abnormal.sum())
-        collect(idx, image_ids, questions, answers, ppls, abnormal)
+        with profiling.span("gstx:generate.collect"):
+            collect(idx, image_ids, questions, answers, ppls, abnormal)
 
     def collect(idx, image_ids, questions, answers, ppls, abnormal):
         batch_records = []
@@ -430,9 +434,6 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
                     if idx else rate)
             print(f"[generate] {done} images, {rate:.1f} img/s "
                   f"(last window {roll:.1f})")
-            if idx and stats_out is not None:
-                stats_out.setdefault("windows", []).append(
-                    (done - roll_state[1], now - roll_state[0]))
             roll_state[0], roll_state[1] = now, done
 
     depth = max(1, config.pipeline)
@@ -451,7 +452,7 @@ def main(argv=None, max_batches=None, stats_out=None, finalize=True,
     # closing(): _prefetch's worker shutdown lives in its finally, which an
     # abandoned generator reaches only when collected; close() runs it on
     # any exit, an engine exception included
-    with trace(config.trace_dir), contextlib.closing(prepared):
+    with profiling.trace(config.trace_dir), contextlib.closing(prepared):
         for item in prepared:
             dispatch(*item)
             if len(pending) >= depth:

@@ -16,8 +16,8 @@ environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.
 ``-dtype bfloat16`` computes in bf16 over f32 parameters;
 ``-use_pallas`` sets the fused FFN / projection-LayerNorm kernels' switch
 (they run where no dropout is active); ``-trace_dir`` writes a trace of the
-loop.  The checkpoints (``vd_train_disc_{epoch}.ckpt`` at each epoch
-boundary, ``vd_train_disc_step.ckpt`` under ``-save_every_steps``) and the
+loop and its spans (``trace.json``, ``spans.json``).  The checkpoints
+(``vd_train_disc_{epoch}.ckpt`` at each epoch boundary, ``vd_train_disc_step.ckpt`` under ``-save_every_steps``) and the
 log (``log_disc.txt``, ``metrics.jsonl``) go to ``-save_path``.  Data
 parallel over the ranks of ``-distributed``, and tensor parallel under
 ``-model_parallel`` (the data x model layout), as

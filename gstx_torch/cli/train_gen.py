@@ -10,8 +10,8 @@ environment sets ``GSTX_PLATFORM=cpu``; without a card it raises.
 ``-dtype bfloat16`` computes in bf16 over f32 parameters and optimizer
 state; ``-use_pallas`` sets the fused FFN / projection-LayerNorm kernels'
 switch (they run where no dropout is active); ``-trace_dir`` writes a
-trace of the loop.  The checkpoints (``{mode}_{chunk}_{epoch}.ckpt``,
-``{mode}_step.ckpt`` under ``-save_every_steps``, ``final.ckpt``) and the
+trace of the loop and its spans (``trace.json``, ``spans.json``).  The
+checkpoints (``{mode}_{chunk}_{epoch}.ckpt``, ``{mode}_step.ckpt`` under ``-save_every_steps``, ``final.ckpt``) and the
 log (``log_{mode}.txt``, ``metrics.jsonl``) go to ``-save_path``.
 
 Data parallel over N ranks, a card each (rank 0 writes the log and the

@@ -244,8 +244,8 @@ class GSTConfig:
     log_every: int = 10
     use_pallas: bool = True  # fused FFN / projection-LayerNorm kernels
     # (bf16, widths the kernels take); the flag keeps the JAX package's name
-    trace_dir: str = ""  # write a device trace of the generation or
-    # training loop here
+    trace_dir: str = ""  # write a device trace and the spans of the
+    # generation, training or evaluation loop here
     pipeline: int = 2  # generate: batches dispatched before the oldest is
     # drained to the host
     flush_every: int = 20  # generate: append completed batches to a

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gstx_torch.core import profiling
+
 BACKEND_ENV = "GSTX_DIST_BACKEND"
 # a collective's deadline: generous, since one rank may still be loading a
 # checkpoint or building the kernels while another already waits
@@ -235,6 +237,19 @@ def pad_batch_rows(batch, multiple: int):
     return batch, n
 
 
+def _collective(op: str, nbytes: int):
+    """The span of one collective ``op`` (``gstx:mesh.<op>``: the host's
+    time to launch it, unsynchronised), counting its calls and this rank's
+    bytes (``mesh.<op>.calls``, ``mesh.<op>.bytes``)."""
+    profiling.count(f"mesh.{op}.calls")
+    profiling.count(f"mesh.{op}.bytes", nbytes)
+    return profiling.span(f"gstx:mesh.{op}")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _wire(t: torch.Tensor, backend: str, device) -> torch.Tensor:
     """``t`` as a collective of ``backend`` takes it: gloo reduces on the
     host, so a CUDA tensor is staged through host memory (the transport
@@ -286,19 +301,21 @@ class DataParallel:
             self._reduce_bucket(bucket)
 
     def _reduce_bucket(self, bucket):
-        flat = self._wire(torch.cat([t.reshape(-1) for t in bucket]))
-        dist.all_reduce(flat, group=self.group)
-        flat = flat.to(bucket[0].device)
-        off = 0
-        for t in bucket:
-            t.copy_(flat[off:off + t.numel()].view_as(t))
-            off += t.numel()
+        with _collective("all_reduce_grads", sum(map(_nbytes, bucket))):
+            flat = self._wire(torch.cat([t.reshape(-1) for t in bucket]))
+            dist.all_reduce(flat, group=self.group)
+            flat = flat.to(bucket[0].device)
+            off = 0
+            for t in bucket:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, on ``t``'s device."""
-        out = self._wire(t.detach().clone())
-        dist.all_reduce(out, group=self.group)
-        return out.to(t.device)
+        with _collective("sum", _nbytes(t)):
+            out = self._wire(t.detach().clone())
+            dist.all_reduce(out, group=self.group)
+            return out.to(t.device)
 
     def gather_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, np.ndarray]:
@@ -307,12 +324,13 @@ class DataParallel:
         order, on every rank, as ``make_global_batch`` assembles it
         (``gstx/core/mesh.py:107``)."""
         out = {}
-        for k in sorted(batch):
-            x = torch.from_numpy(np.ascontiguousarray(batch[k]))
-            wire = self._wire(x)
-            parts = [torch.empty_like(wire) for _ in range(self.size)]
-            dist.all_gather(parts, wire, group=self.group)
-            out[k] = torch.cat(parts).cpu().numpy()
+        with _collective("gather_batch", sum(v.nbytes for v in batch.values())):
+            for k in sorted(batch):
+                x = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                wire = self._wire(x)
+                parts = [torch.empty_like(wire) for _ in range(self.size)]
+                dist.all_gather(parts, wire, group=self.group)
+                out[k] = torch.cat(parts).cpu().numpy()
         return out
 
     def row_indices(self, n: int):
@@ -330,13 +348,14 @@ class DataParallel:
         """Rank 0: the [n, ...] rows that :meth:`row_indices` split, each
         rank's ``local`` [per, ...] put back in order with the padded rows
         dropped, on the host.  The other ranks: None."""
-        wire = self._wire(local.contiguous())
-        parts = [torch.empty_like(wire) for _ in range(self.size)] \
-            if self.rank == 0 else None
-        dist.gather(wire, parts, dst=self._global(0), group=self.group)
-        if self.rank != 0:
-            return None
-        return torch.cat(parts)[:n].cpu()
+        with _collective("gather_rows", _nbytes(local)):
+            wire = self._wire(local.contiguous())
+            parts = [torch.empty_like(wire) for _ in range(self.size)] \
+                if self.rank == 0 else None
+            dist.gather(wire, parts, dst=self._global(0), group=self.group)
+            if self.rank != 0:
+                return None
+            return torch.cat(parts)[:n].cpu()
 
     def _global(self, group_rank: int) -> int:
         if self.group is None:
@@ -527,24 +546,27 @@ class ModelGroup:
                    ) -> torch.Tensor:
         """``op`` of ``t`` over the group, a new tensor on ``t``'s
         device."""
-        wire = self._fresh(t)
-        dist.all_reduce(wire, op=op, group=self.group)
-        return wire.to(t.device)
+        with _collective("all_reduce", _nbytes(t)):
+            wire = self._fresh(t)
+            dist.all_reduce(wire, op=op, group=self.group)
+            return wire.to(t.device)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's ``t``s concatenated on ``dim`` in rank order, on
         ``t``'s device."""
-        wire = self._fresh(t)
-        parts = [torch.empty_like(wire) for _ in range(self.size)]
-        dist.all_gather(parts, wire, group=self.group)
-        return torch.cat(parts, dim).to(t.device)
+        with _collective("all_gather", _nbytes(t)):
+            wire = self._fresh(t)
+            parts = [torch.empty_like(wire) for _ in range(self.size)]
+            dist.all_gather(parts, wire, group=self.group)
+            return torch.cat(parts, dim).to(t.device)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Group rank 0's ``t`` on every rank, on ``t``'s device."""
-        wire = self._fresh(t)
-        dist.broadcast(wire, src=dist.get_global_rank(self.group, 0),
-                       group=self.group)
-        return wire.to(t.device)
+        with _collective("broadcast", _nbytes(t)):
+            wire = self._fresh(t)
+            dist.broadcast(wire, src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
+            return wire.to(t.device)
 
 
 class Axes(NamedTuple):

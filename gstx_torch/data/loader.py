@@ -14,6 +14,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from gstx_torch.core import profiling
+
 
 def collate(items) -> Dict[str, np.ndarray]:
     """Stack a list of item dicts into one batch dict."""
@@ -95,11 +97,15 @@ class DataLoader:
         nb = len(self)
 
         def fetch(i):
-            lo = i * self.batch_size
-            hi = min(lo + self.batch_size, n)
-            idx = order[lo:hi]
-            items = [self._get(int(j), epoch_id) for j in idx]
-            return collate(items)
+            # a task: a worker's batch may begin before a traced window
+            with profiling.task("gstx:loader.fetch"):
+                lo = i * self.batch_size
+                hi = min(lo + self.batch_size, n)
+                idx = order[lo:hi]
+                items = [self._get(int(j), epoch_id) for j in idx]
+                batch = collate(items)
+            profiling.count("loader.batches")
+            return batch
 
         if self.num_workers <= 1:
             for i in range(start_batch, nb):
@@ -113,7 +119,8 @@ class DataLoader:
                 pending.append(pool.submit(fetch, i))
             nxt = start_batch + len(pending)
             for i in range(start_batch, nb):
-                batch = pending.pop(0).result()
+                with profiling.span("gstx:loader.wait"):
+                    batch = pending.pop(0).result()
                 if nxt < nb:
                     pending.append(pool.submit(fetch, nxt))
                     nxt += 1

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gstx_torch.core import profiling
 from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
 from gstx_torch.core.device import resolve_device
 from gstx_torch.decode.sampler import (DecodeSettings, init_cache,
@@ -140,13 +141,16 @@ def make_dialog_engine(num_rounds: int = 10,
                          ngram_source):
         batch = state.enc_input_ids.shape[0]
         att = (state.enc_input_ids != PAD_ID).long()
-        mem_kv, mem_mask = model.decode_prepare(
-            state.enc_input_ids, image["feat"], image["loc"],
-            state.enc_segments, att, image["mask"])
-        if quantize_memory and dtype == torch.bfloat16:
-            # the memory is static for the utterance: int8 halves what every
-            # decode step reads (gstx/decode/dialog_engine.py:157-166)
-            mem_kv = tdecoder.quantize_memory_kv(mem_kv, mem_mask, dtype)
+        with profiling.span("gstx:encoder.memory"):
+            mem_kv, mem_mask = model.decode_prepare(
+                state.enc_input_ids, image["feat"], image["loc"],
+                state.enc_segments, att, image["mask"])
+            if quantize_memory and dtype == torch.bfloat16:
+                # the memory is static for the utterance: int8 halves what
+                # every decode step reads
+                # (gstx/decode/dialog_engine.py:157-166)
+                mem_kv = tdecoder.quantize_memory_kv(mem_kv, mem_mask,
+                                                     dtype)
 
         def step_fn(tok, pos, caches):
             return model.decode_step(tok, pos, caches, mem_kv, mem_mask)
@@ -180,15 +184,18 @@ def make_dialog_engine(num_rounds: int = 10,
         # includes EOS; a PAD drawn before EOS undershoots the count, as
         # the reference's ques_ids[:ques_len] copy does
         ques_len = (ques != PAD_ID).sum(-1)
-        state, _ = append_utterance(state, ques, ques_len, segment=0,
-                                    write_segments=False)
+        with profiling.span("gstx:engine.append"):
+            state, _ = append_utterance(state, ques, ques_len, segment=0,
+                                        write_segments=False)
         answ, (mem_kv, mem_mask) = decode_utterance(
             a_model, state, image, generator, a_settings, None)
-        ppl, ans_wo_eos, ans_len = answer_ppl(a_model, answ, mem_kv,
-                                              mem_mask)
+        with profiling.span("gstx:engine.score"):
+            ppl, ans_wo_eos, ans_len = answer_ppl(a_model, answ, mem_kv,
+                                                  mem_mask)
         # the EOS->PAD-rewritten answer with its EOS-less length, segment 1
-        state, _ = append_utterance(state, ans_wo_eos, ans_len, segment=1,
-                                    write_segments=True)
+        with profiling.span("gstx:engine.append"):
+            state, _ = append_utterance(state, ans_wo_eos, ans_len,
+                                        segment=1, write_segments=True)
         return state, ques, answ, ppl
 
     growth = q_settings.max_steps + a_settings.max_steps
@@ -214,6 +221,11 @@ def make_dialog_engine(num_rounds: int = 10,
     @torch.no_grad()
     def engine(q_model, a_model, batch, generator: torch.Generator,
                init_max=None) -> DialogOutput:
+        profiling.count("engine.batches")
+        with profiling.span("gstx:engine.batch"):
+            return run(q_model, a_model, batch, generator, init_max)
+
+    def run(q_model, a_model, batch, generator, init_max):
         q_model = prepare(q_model)
         a_model = q_model if a_model is q_model else prepare(a_model)
         image = {"feat": _features(batch["enc_image_feat"]),
@@ -235,7 +247,8 @@ def make_dialog_engine(num_rounds: int = 10,
             # one host sync up front unless the caller knows the length;
             # afterwards the schedule is static
             if init_max is None:
-                init_max = int(state.enc_len.max())
+                with profiling.sync_span("gstx:engine.sync", "engine"):
+                    init_max = int(state.enc_len.max())
             start = next((b for b in buckets
                           if b >= min(init_max + growth, full_s)), full_s)
             state = state._replace(
@@ -248,15 +261,19 @@ def make_dialog_engine(num_rounds: int = 10,
                 cur_w = state.enc_input_ids.shape[1]
                 if dynamic_buckets:
                     # host sync on the previous round's actual lengths
-                    worst = min(int(state.enc_len.max()) + growth, full_s)
+                    with profiling.sync_span("gstx:engine.sync", "engine"):
+                        worst = min(int(state.enc_len.max()) + growth,
+                                    full_s)
                 else:
                     worst = init_max + (rnd_idx + 1) * growth
                 target = next((b for b in buckets if b >= worst), full_s)
                 target = max(target, cur_w)
                 if target > cur_w:
                     state = _widen(state, target - cur_w)
-            state, ques, answ, ppl = one_round(q_model, a_model, state,
-                                               image, generator)
+            profiling.count("engine.rounds")
+            with profiling.span("gstx:engine.round"):
+                state, ques, answ, ppl = one_round(q_model, a_model, state,
+                                                   image, generator)
             qs.append(ques)
             ans.append(answ)
             ppls.append(ppl)

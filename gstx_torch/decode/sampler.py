@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gstx_torch.core import profiling
 from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
 from gstx_torch.ops.sampling import (
     ngram_block,
@@ -70,6 +71,14 @@ def sample_sequence(step_fn, generator: torch.Generator, batch: int, caches,
     ``done`` on the host, one device sync per step.  ``tp``: the model
     group whose rank 0's tokens every rank takes (a broadcast a step).
     """
+    profiling.count("decode.utterances")
+    with profiling.span("gstx:decode.utterance"):
+        return _sample(step_fn, generator, batch, caches, settings,
+                       ngram_source, bos_id, eos_id, device, tp)
+
+
+def _sample(step_fn, generator, batch, caches, settings, ngram_source,
+            bos_id, eos_id, device, tp):
     tokens = torch.zeros((batch, settings.max_steps + 1), dtype=torch.long,
                          device=device)
     tokens[:, 0] = bos_id
@@ -77,21 +86,30 @@ def sample_sequence(step_fn, generator: torch.Generator, batch: int, caches,
     fused = settings.fused_sampler and 0 < settings.top_k <= 16 \
         and settings.top_p <= 0.0
     for step in range(settings.max_steps):
-        logits = step_fn(tokens[:, step:step + 1], step, caches)
-        logits = logits / settings.temperature
-        if settings.ngram_blocking_size > 0 and ngram_source is not None:
-            logits = ngram_block(logits, ngram_source, tokens, step + 1,
-                                 settings.ngram_blocking_size)
-        if fused:
-            nxt = sample_token_topk(generator, logits, settings.top_k)
-        else:
-            logits = top_k_top_p_filter(logits, settings.top_k,
-                                        settings.top_p)
-            nxt = sample_token(generator, logits)
-        if tp is not None:
-            nxt = tp.broadcast(nxt)
-        tokens[:, step + 1] = nxt
-        done |= nxt == eos_id
-        if bool(done.all()):
+        profiling.count("decode.steps")
+        with profiling.span("gstx:decode.step"):
+            with profiling.span("gstx:decode.model"):
+                logits = step_fn(tokens[:, step:step + 1], step, caches)
+            with profiling.span("gstx:decode.sample"):
+                logits = logits / settings.temperature
+                if settings.ngram_blocking_size > 0 and \
+                        ngram_source is not None:
+                    logits = ngram_block(logits, ngram_source, tokens,
+                                         step + 1,
+                                         settings.ngram_blocking_size)
+                if fused:
+                    nxt = sample_token_topk(generator, logits,
+                                            settings.top_k)
+                else:
+                    logits = top_k_top_p_filter(logits, settings.top_k,
+                                                settings.top_p)
+                    nxt = sample_token(generator, logits)
+                if tp is not None:
+                    nxt = tp.broadcast(nxt)
+                tokens[:, step + 1] = nxt
+                done |= nxt == eos_id
+            with profiling.sync_span("gstx:decode.sync", "engine"):
+                finished = bool(done.all())
+        if finished:
             break
     return pad_after_eos(tokens[:, 1:], eos_id, PAD_ID)

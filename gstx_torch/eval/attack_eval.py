@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from gstx_torch.core import profiling
 from gstx_torch.core.config import PAD_ID, SEP_ID, GSTConfig
 from gstx_torch.eval.attacks import TextAttack, make_fgsm_scorer
 from gstx_torch.eval.metrics import NDCG, SparseGTMetrics
@@ -105,31 +106,65 @@ def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
     batch_idx = 0
     while True:
         t_wait = time.perf_counter()
-        batch = next(batches, None)
+        with profiling.span("gstx:eval.wait"):
+            batch = next(batches, None)
         totals["wait_seconds"] += time.perf_counter() - t_wait
         if batch is None:
             break
-        text, images, (b, rounds, options) = flatten_gen(batch)
-        if b != 1 or chunk_size != options:
-            raise ValueError(
-                f"the attack evaluation takes batches of one dialog and "
-                f"chunks of its {options} options (reference :378); got "
-                f"{b} dialogs and chunks of {chunk_size}")
-        sep = batch["enc_sep_indices"].reshape(rounds * options, -1)
-        round_id = int(batch["round_id"][0, 0])
-        rows, valid = rank_share(dp, options, device)
-        relevance = np.asarray(batch["gt_relevance"][0], np.float32)
-        if dp is not None:
-            # a padded row repeats row 0 but takes relevance 0: no FGSM step
-            relevance = np.where(valid, relevance[rows.cpu().numpy()], 0.0)
-            host_rows = rows.cpu().numpy()
-        out = []
-        with torch.no_grad():
+        with profiling.span("gstx:eval.batch"):
+            done = _attack_batch(batch, batch_idx, config, coref_dependency,
+                                 text_attack, fgsm, score_chunk, chunk_size,
+                                 device, dp, totals)
+            # None on a rank other than 0: its share is sent
+            if done is not None:
+                with profiling.span("gstx:eval.metrics"):
+                    scores, round_id = done
+                    sparse.observe(scores, batch["gt_option_inds"])
+                    if config.vd_version == "1.0":
+                        ndcg.observe(scores[np.arange(1), round_id - 1],
+                                     batch["gt_relevance"])
+        batch_idx += 1
+    if stats_out is not None:
+        stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
+    if dp is not None and dp.rank != 0:
+        return None
+
+    metrics = dict(sparse.retrieve(reset=True))
+    if config.vd_version == "1.0":
+        metrics.update(ndcg.retrieve(reset=True))
+    if logger is not None:
+        for k, v in metrics.items():
+            logger.write(f"{k}: {v}")
+    return metrics
+
+
+def _attack_batch(batch, batch_idx, config, coref_dependency, text_attack,
+                  fgsm, score_chunk, chunk_size, device, dp, totals):
+    """One dialog attacked and scored: (its [1, rounds, options] host
+    scores, its dense round's id), or None on a rank other than dp's 0."""
+    text, images, (b, rounds, options) = flatten_gen(batch)
+    if b != 1 or chunk_size != options:
+        raise ValueError(
+            f"the attack evaluation takes batches of one dialog and "
+            f"chunks of its {options} options (reference :378); got "
+            f"{b} dialogs and chunks of {chunk_size}")
+    sep = batch["enc_sep_indices"].reshape(rounds * options, -1)
+    round_id = int(batch["round_id"][0, 0])
+    rows, valid = rank_share(dp, options, device)
+    relevance = np.asarray(batch["gt_relevance"][0], np.float32)
+    if dp is not None:
+        # a padded row repeats row 0 but takes relevance 0: no FGSM step
+        relevance = np.where(valid, relevance[rows.cpu().numpy()], 0.0)
+        host_rows = rows.cpu().numpy()
+    out = []
+    with torch.no_grad():
+        with profiling.span("gstx:eval.h2d"):
             dev_text, dev_images = batch_to_device(text, images, device,
                                                    torch.float32, ())
             relevance = torch.from_numpy(np.ascontiguousarray(
                 relevance, np.float32)).to(device)
-            for j in range(rounds):
+        for j in range(rounds):
+            with profiling.span("gstx:eval.chunk"):
                 lo, hi = j * options, (j + 1) * options
                 chunk = chunk_inputs(dev_text, dev_images, lo, hi,
                                      rounds * options, rows)
@@ -150,28 +185,14 @@ def evaluate_attack(model: GSTVisualDialog, loader, config: GSTConfig,
                     config, text_attack, chunk, host, dep, is_dense)
                 totals["text_attacked"] += changed
                 out.append(score_chunk(attacked))
+        with profiling.span("gstx:eval.fetch"):
             scores = gather_scores(dp, torch.cat(out), rounds, options)
-        totals["batches"] += 1
-        totals["images"] += 1
-        totals["sequences"] += rounds * options
-        totals["chunks"] += rounds
-        batch_idx += 1
-        if scores is None:
-            continue  # a rank other than 0: its share is sent
-        scores = scores.numpy().reshape(1, rounds, options)
-        sparse.observe(scores, batch["gt_option_inds"])
-        if config.vd_version == "1.0":
-            ndcg.observe(scores[np.arange(1), round_id - 1],
-                         batch["gt_relevance"])
-    if stats_out is not None:
-        stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
-    if dp is not None and dp.rank != 0:
+    profiling.count("eval.chunks", rounds)
+    profiling.count("eval.sequences", rounds * options)
+    totals["batches"] += 1
+    totals["images"] += 1
+    totals["sequences"] += rounds * options
+    totals["chunks"] += rounds
+    if scores is None:
         return None
-
-    metrics = dict(sparse.retrieve(reset=True))
-    if config.vd_version == "1.0":
-        metrics.update(ndcg.retrieve(reset=True))
-    if logger is not None:
-        for k, v in metrics.items():
-            logger.write(f"{k}: {v}")
-    return metrics
+    return scores.numpy().reshape(1, rounds, options), round_id

@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from gstx_torch.core import profiling
 from gstx_torch.core.config import PAD_ID, SEP_ID
 from gstx_torch.eval.metrics import NDCG, SparseGTMetrics, scores_to_ranks
 from gstx_torch.models.encdec import (GSTVisualDialog,
@@ -149,45 +150,34 @@ def rank_candidates(score_chunk: Callable, batches, flatten: Callable,
     with torch.inference_mode():
         while True:
             t_wait = time.perf_counter()
-            batch = next(batches, None)
+            with profiling.span("gstx:eval.wait"):
+                batch = next(batches, None)
             totals["wait_seconds"] += time.perf_counter() - t_wait
             if batch is None:
                 break
-            text, images, (b, rounds, options) = flatten(batch)
-            total = b * rounds * options
-            cs = min(chunk_size, total)
-            if total % cs:
-                raise ValueError(f"{total} sequences do not split into "
-                                 f"chunks of {cs}")
-            dev_text, dev_images = batch_to_device(text, images, device,
-                                                   feat_dtype, feat_keys)
-            rows, _ = rank_share(dp, cs, device)
-            out = [score_chunk(chunk_inputs(dev_text, dev_images, j, j + cs,
-                                            rounds * options, rows))
-                   for j in range(0, total, cs)]
-            scores = gather_scores(dp, torch.cat(out), total // cs, cs)
-            totals["batches"] += 1
-            totals["images"] += b
-            totals["sequences"] += total
-            totals["chunks"] += total // cs
-            if scores is None:
-                continue  # a rank other than 0: its share is sent
-            scores = scores.numpy().reshape(b, rounds, options)
-
-            if mode == "vd_eval_val":
-                sparse.observe(scores, batch["gt_option_inds"])
-                if vd_version == "1.0":
-                    rel_round = batch["round_id"][:, 0]  # 1-based
-                    ndcg.observe(scores[np.arange(b), rel_round - 1],
-                                 batch["gt_relevance"])
-            else:
-                ranks = scores_to_ranks(scores)[:, 0, :]
-                for i in range(b):
-                    ranks_json.append({
-                        "image_id": int(batch["image_id"][i, 0]),
-                        "round_id": int(batch["round_id"][i, 0]),
-                        "ranks": [int(r) for r in ranks[i]],
-                    })
+            with profiling.span("gstx:eval.batch"):
+                scores, (b, rounds, options) = _score_batch(
+                    score_chunk, flatten(batch), chunk_size, device,
+                    feat_dtype, feat_keys, dp, totals)
+                if scores is None:
+                    continue  # a rank other than 0: its share is sent
+                with profiling.span("gstx:eval.metrics"):
+                    scores = scores.numpy().reshape(b, rounds, options)
+                    if mode == "vd_eval_val":
+                        sparse.observe(scores, batch["gt_option_inds"])
+                        if vd_version == "1.0":
+                            rel_round = batch["round_id"][:, 0]  # 1-based
+                            ndcg.observe(
+                                scores[np.arange(b), rel_round - 1],
+                                batch["gt_relevance"])
+                    else:
+                        ranks = scores_to_ranks(scores)[:, 0, :]
+                        for i in range(b):
+                            ranks_json.append({
+                                "image_id": int(batch["image_id"][i, 0]),
+                                "round_id": int(batch["round_id"][i, 0]),
+                                "ranks": [int(r) for r in ranks[i]],
+                            })
     if stats_out is not None:
         stats_out.update(totals, loop_seconds=time.perf_counter() - t0)
     if dp is not None and dp.rank != 0:
@@ -203,6 +193,38 @@ def rank_candidates(score_chunk: Callable, batches, flatten: Callable,
                 logger.write(f"{k}: {v}")
         return metrics
     return ranks_json
+
+
+def _score_batch(score_chunk, flat, chunk_size, device, feat_dtype,
+                 feat_keys, dp, totals):
+    """One batch's scores on the host (None on a rank other than dp's 0)
+    and its (B, rounds, options): its chunks queued on the device, their
+    scores fetched once."""
+    text, images, (b, rounds, options) = flat
+    total = b * rounds * options
+    cs = min(chunk_size, total)
+    if total % cs:
+        raise ValueError(f"{total} sequences do not split into "
+                         f"chunks of {cs}")
+    with profiling.span("gstx:eval.h2d"):
+        dev_text, dev_images = batch_to_device(text, images, device,
+                                               feat_dtype, feat_keys)
+    rows, _ = rank_share(dp, cs, device)
+    out = []
+    for j in range(0, total, cs):
+        with profiling.span("gstx:eval.chunk"):
+            out.append(score_chunk(chunk_inputs(dev_text, dev_images, j,
+                                                j + cs, rounds * options,
+                                                rows)))
+    with profiling.span("gstx:eval.fetch"):
+        scores = gather_scores(dp, torch.cat(out), total // cs, cs)
+    profiling.count("eval.chunks", total // cs)
+    profiling.count("eval.sequences", total)
+    totals["batches"] += 1
+    totals["images"] += b
+    totals["sequences"] += total
+    totals["chunks"] += total // cs
+    return scores, (b, rounds, options)
 
 
 def flatten_gen(batch):

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gstx_torch.core import profiling
 from gstx_torch.core.config import DecoderConfig
 from gstx_torch.kernels import decode_attn as kdecode
 from gstx_torch.models import tensor_parallel as tpar
@@ -201,16 +202,19 @@ class DecoderLayer(nn.Module):
         """One KV-cached decode step for x [B, 1, D] at position ``pos``.
         JAX returns a new cache (``dynamic_update_slice``); here the cache
         is written in place, which saves a copy of it per step."""
-        q, k, v = (split_heads(t, self.num_heads)
-                   for t in self.attention.self(x))
-        cache["k"][:, :, pos] = k[:, :, 0]
-        cache["v"][:, :, pos] = v[:, :, 0]
-        # valid cache slots are [0, pos]; mask the rest
-        slot = torch.arange(cache["k"].shape[2], device=x.device)
-        smask = torch.where(slot <= pos, 0.0, MASK_VALUE).to(x.dtype)
-        x = self._self_block(x, q, cache["k"], cache["v"], smask)
-        x = self._cross_block(x, mem, mem_mask)
-        return self._ffn_block(x)
+        with profiling.span("gstx:decoder.self_attn"):
+            q, k, v = (split_heads(t, self.num_heads)
+                       for t in self.attention.self(x))
+            cache["k"][:, :, pos] = k[:, :, 0]
+            cache["v"][:, :, pos] = v[:, :, 0]
+            # valid cache slots are [0, pos]; mask the rest
+            slot = torch.arange(cache["k"].shape[2], device=x.device)
+            smask = torch.where(slot <= pos, 0.0, MASK_VALUE).to(x.dtype)
+            x = self._self_block(x, q, cache["k"], cache["v"], smask)
+        with profiling.span("gstx:decoder.cross_attn"):
+            x = self._cross_block(x, mem, mem_mask)
+        with profiling.span("gstx:decoder.ffn"):
+            return self._ffn_block(x)
 
 
 class _DecoderStack(nn.Module):

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from gstx_torch.core import mesh
+from gstx_torch.core import mesh, profiling
 from gstx_torch.core.config import DecoderConfig, EncoderConfig
 from gstx_torch.core.device import resolve_device
 from gstx_torch.models import tensor_parallel as tpar
@@ -275,10 +275,12 @@ class GSTVisualDialog(nn.Module):
         """One decode step: token_ids [B, 1] at absolute position ``pos``.
         Returns [B, vocab] float32 logits, the full vocab (gathered under a
         sharded one); ``caches`` are updated in place."""
-        positions = torch.full_like(token_ids, pos)
-        x = self._embed_dec(token_ids, positions=positions)
+        with profiling.span("gstx:decoder.embed"):
+            positions = torch.full_like(token_ids, pos)
+            x = self._embed_dec(token_ids, positions=positions)
         h = self.dec.step(x, pos, caches, memory_kv, memory_add_mask)
-        return self.full_logits(self.dec.lm_logits(h)[:, 0, :])
+        with profiling.span("gstx:decoder.lm_head"):
+            return self.full_logits(self.dec.lm_logits(h)[:, 0, :])
 
 
 def precast_(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:

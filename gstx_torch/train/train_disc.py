@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from gstx_torch.core import checkpoint as ckpt_lib
-from gstx_torch.core import mesh
+from gstx_torch.core import mesh, profiling
 from gstx_torch.core.config import GSTConfig
 from gstx_torch.core.mesh import DataParallel
 from gstx_torch.models.encdec import GSTVisualDialog
@@ -134,13 +134,16 @@ def make_disc_train_step(model: GSTVisualDialog, optimizer: AdamW,
         denoms = loss_denominators(drawn, model.enc_config.predict_feature)
         rows = rows_to_device({k: v[mine] for k, v in drawn.items()},
                               model.device)
-        losses = row_losses(model, rows, config,
-                            Training(train_gen.rank_seed(seed, dp), remat),
-                            denoms)
-        losses["loss"].backward()
+        with profiling.span("gstx:train.forward"):
+            losses = row_losses(model, rows, config,
+                                Training(train_gen.rank_seed(seed, dp),
+                                         remat), denoms)
+        with profiling.span("gstx:train.backward"):
+            losses["loss"].backward()
         if dp is not None:
             dp.all_reduce_grads_(model.parameters())
-        optimizer.step()
+        with profiling.span("gstx:train.optimizer"):
+            optimizer.step()
         return {k: v.detach() if dp is None else dp.sum(v.detach())
                 for k, v in losses.items()}
 

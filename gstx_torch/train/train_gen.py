@@ -34,11 +34,10 @@ import numpy as np
 import torch
 
 from gstx_torch.core import checkpoint as ckpt_lib
-from gstx_torch.core import mesh
+from gstx_torch.core import mesh, profiling
 from gstx_torch.core.config import PAD_ID, GSTConfig
 from gstx_torch.core.logging import Logger, MetricsWriter
 from gstx_torch.core.mesh import Axes, DataParallel
-from gstx_torch.core.profiling import trace
 from gstx_torch.data.loader import DataLoader, batch_iter
 from gstx_torch.models.encdec import GSTVisualDialog, teacher_forced_loss
 from gstx_torch.models.layers import Training
@@ -162,18 +161,21 @@ def make_train_step(model: GSTVisualDialog, optimizer: AdamW,
             labels = select_rows(batch, idx, ("dec_labels",), ())
             count = max(1, int((labels["dec_labels"] != PAD_ID).sum()))
             rows = rows_to_device(select_rows(batch, idx[mine]), device)
-            loss = row_loss(model, rows, Training(rank_seed(seed, dp),
-                                                  remat), denom=count)
-            loss.backward()
+            with profiling.span("gstx:train.forward"):
+                loss = row_loss(model, rows, Training(rank_seed(seed, dp),
+                                                      remat), denom=count)
+            with profiling.span("gstx:train.backward"):
+                loss.backward()
             losses.append(loss.detach())
         if dp is not None:
             dp.all_reduce_grads_(model.parameters())
-        if batch_multiply > 1:
-            with torch.no_grad():
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(batch_multiply)
-        optimizer.step()
+        with profiling.span("gstx:train.optimizer"):
+            if batch_multiply > 1:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(batch_multiply)
+            optimizer.step()
         loss = torch.stack(losses).mean()
         return loss if dp is None else dp.sum(loss)
 
@@ -241,7 +243,8 @@ def checkpoint_saver(save_path: str, model, optimizer,
     def save(name, step):
         path = os.path.join(save_path, name)
         t0 = time.perf_counter()
-        ckpt_lib.save_checkpoint(path, model, optimizer, step)
+        with profiling.span("gstx:train.save"):
+            ckpt_lib.save_checkpoint(path, model, optimizer, step)
         if stats_out is not None:
             stats_out["saves"].append(dict(
                 path=path, bytes=os.path.getsize(path),
@@ -318,7 +321,9 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
     synchronises every step.
 
     In a multi-process run every rank runs the loop (the checkpoints are
-    collective: rank 0 writes them) and rank 0 alone writes the log."""
+    collective: rank 0 writes them) and rank 0 alone writes the log.
+    ``-trace_dir`` writes a trace of the loop and its spans
+    (:func:`gstx_torch.core.profiling.trace`)."""
     device = model.device
     primary = mesh.process_index() == 0
     logger = metrics_writer = None
@@ -334,13 +339,15 @@ def run_training(config: GSTConfig, model, optimizer, step_fn, loader,
     start_t = time.time()
     start_epoch, start_idx = divmod(start_iter_id, num_iter_epoch)
     iter_id = start_iter_id  # the final save works on a zero-batch run
-    with trace(config.trace_dir):
+    with profiling.trace(config.trace_dir):
         for epoch_id, idx, batch in batch_iter(loader, config.num_epochs,
                                                start_epoch, start_idx):
             iter_id = idx + epoch_id * num_iter_epoch
             t0 = time.perf_counter()
-            losses = step_fn(batch, iteration_generator(config.seed,
-                                                        iter_id))
+            profiling.count("train.steps")
+            with profiling.span("gstx:train.step"):
+                losses = step_fn(batch, iteration_generator(config.seed,
+                                                            iter_id))
             if stats_out is not None:
                 sync(device)
                 stats_out["step_seconds"].append(time.perf_counter() - t0)

@@ -273,6 +273,8 @@ def test_prefetch_reraises_worker_errors():
 
 
 def test_trace_dir_writes_a_trace_with_the_cli_spans(env, tmp_path):
+    """``trace.json`` with the CLI's and the program's spans, and
+    ``spans.json`` with the registry's spans, counters and launches."""
     args, _, ckpt, _ = env
     trace_dir = tmp_path / "trace"
     port(args + _base(ckpt, rounds=1, steps=2)
@@ -280,6 +282,18 @@ def test_trace_dir_writes_a_trace_with_the_cli_spans(env, tmp_path):
          max_batches=1)
     text = (trace_dir / "trace.json").read_text()
     assert "gstx:dispatch_rounds" in text and "gstx:fetch_results" in text
+    assert "gstx:decode.step" in text and "gstx:decoder.ffn" in text
+    spans = json.loads((trace_dir / "spans.json").read_text())
+    names = {r[0] for r in spans["spans"]}
+    assert {"gstx:engine.batch", "gstx:decode.step",
+            "gstx:loader.fetch", "gstx:generate.collect"} <= names
+    snap = spans["snapshot"]
+    assert snap["counters"]["decode.steps"] == \
+        snap["spans"]["gstx:decode.step"]["count"] > 0
+    assert snap["counters"]["engine.batches"] == 1
+    assert spans["launches"]["fused_ffn"] == 0
+    assert spans["fields"][:3] == ["name", "start_ns", "end_ns"]
+    assert "max_memory_allocated" in spans
 
 
 # ---------------------------------------------------------------------- #

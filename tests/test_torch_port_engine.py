@@ -17,6 +17,7 @@ from gstx.decode.dialog_engine import make_dialog_engine as j_make_engine
 from gstx.models.encdec import GSTVisualDialog as JGST
 from gstx.ops import sampling as jsampling
 from gstx_torch.core import config as tcfg
+from gstx_torch.core import profiling
 from gstx_torch.core.checkpoint import state_dict_from_jax
 from gstx_torch.decode import sampler as tsampler
 from gstx_torch.decode.dialog_engine import (DialogState, append_utterance,
@@ -218,6 +219,42 @@ def test_dynamic_buckets_identical_to_static(engine_setup):
             for b, d in (((), False), ((20, 30), True))]
     for a, b in zip(outs[0][:4], outs[1][:4]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5)
+
+
+def test_engine_counts_the_steps_the_sampler_ran(engine_setup,
+                                                 monkeypatch):
+    """One engine call, collected: the decode-step counter and spans
+    against the model's decode steps, and one host sync a step plus the
+    dynamic schedule's (one up front, one a round)."""
+    enc, _, _, _, (q_model, a_model) = engine_setup
+    calls = []
+    for m in (q_model, a_model):
+        def counted(*a, _step=m.decode_step, **k):
+            calls.append(1)
+            return _step(*a, **k)
+        monkeypatch.setattr(m, "decode_step", counted)
+    batch = make_gen_batch(enc, b=2, seq_len=48, regions=7, cap_len=10)
+    engine = make_dialog_engine(
+        q_settings=tsampler.DecodeSettings(max_steps=3, top_k=1,
+                                           ngram_blocking_size=4),
+        a_settings=tsampler.DecodeSettings(max_steps=3, top_k=1,
+                                           ngram_blocking_size=0),
+        num_rounds=2, context_buckets=(20, 30), dynamic_buckets=True,
+        device="cpu")
+    profiling.reset()
+    with profiling.collecting():
+        engine(q_model, a_model, batch, torch.Generator().manual_seed(0))
+    snap = profiling.snapshot()
+    profiling.reset()
+    steps = len(calls)
+    c, spans = snap["counters"], snap["spans"]
+    assert steps > 0 and c["decode.steps"] == steps
+    assert spans["gstx:decode.step"]["count"] == steps
+    assert spans["gstx:decoder.ffn"]["count"] == \
+        steps * a_model.dec_config.num_hidden_layers
+    assert c["decode.utterances"] == 4 and c["engine.rounds"] == 2
+    assert c["engine.batches"] == 1 and c["engine.host_syncs"] == steps + 3
+    assert spans["gstx:encoder.memory"]["count"] == 4
 
 
 def test_cuda_request_without_card_raises():
