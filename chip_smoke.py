@@ -66,7 +66,11 @@
            then warm-up, timed batches with counted launches, phase 4's
            breakdown for this configuration, and one batch of each
            configuration in turns (default, all kernels, all kernels,
-           default), since the host's speed drifts within a run;
+           default), since the host's speed drifts within a run; its
+           profiled round (at the end of the run) counts the
+           quant_decode_kernel events that the decode graphs' replays
+           launch and holds them against the wrapper's counter and layers
+           x steps;
   phase 6  the port's generation CLI (gstx_torch.cli.generate.main)
            in-process at full width, as a user runs it: a 30,522-word
            WordPiece vocab, a synthetic store of 200 images x 36 boxes x
@@ -1151,12 +1155,19 @@ def breakdown(torch, model, batch, settings, card, tag, quantize):
 
 
 def profile_round(torch, model, batch, settings, card, tag, quantize):
-    """One round under torch.profiler: the device's busy share and its top
-    kernels.  Run after every timed measurement: on an H100 machine the
-    engine's timings taken after a profiled round ran 26-50% slower for the
-    rest of the run."""
+    """One round under torch.profiler, on an engine warmed by one round
+    (its decode steps captured as CUDA graphs, so the profiled round only
+    replays them): the device's busy share and its top kernels.  With
+    ``quantize`` (the decode kernel on), the quant_decode_kernel events in
+    the trace, launched by the graphs' replays, are counted and held
+    against the wrapper's counter (which adds a replay's launches without
+    running the wrapper) and against every layer of every decode step.  Run
+    after every timed measurement: on an H100 machine the engine's timings
+    taken after a profiled round ran 26-50% slower for the rest of the
+    run."""
     from gstx_torch.decode.dialog_engine import make_dialog_engine
     from gstx_torch.decode.sampler import DecodeSettings
+    from gstx_torch.kernels import decode_attn as kdecode
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     q_set = DecodeSettings(ngram_blocking_size=4, **settings)
@@ -1164,13 +1175,32 @@ def profile_round(torch, model, batch, settings, card, tag, quantize):
         num_rounds=1, q_settings=q_set,
         a_settings=DecodeSettings(ngram_blocking_size=0, **settings),
         dtype=torch.bfloat16, quantize_memory=quantize, device="cuda")
-    profiled(torch, lambda: one(model, model, batch, gen),
-             "round at context 256", card, tag)
+    one(model, model, batch, gen)
+    before = kdecode.launches["quant_decode_attention"]
+    prof = profiled(torch, lambda: one(model, model, batch, gen),
+                    "round at context 256 (decode graphs replayed)", card,
+                    tag)
+    if not quantize:
+        return
+    counted = kdecode.launches["quant_decode_attention"] - before
+    traced = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "quant_decode_kernel" in e.key)
+    # no decode ends early: phase 5's timed batches hold that
+    want = model.dec_config.num_hidden_layers * q_set.max_steps * 2
+    log(f"[{tag}] quant_decode_attention in the profiled round: "
+        f"{traced} kernel events in the trace, {counted} counted by the "
+        f"wrapper's counter, {want} expected (layers x steps x 2 "
+        f"utterances)")
+    if not traced == counted == want:
+        raise AssertionError("traced decode-kernel launches disagree with "
+                             "the counter")
 
 
 def profiled(torch, fn, what, card, tag):
     """``fn`` under torch.profiler: the device's busy share and its top
-    kernels, with the shares of the port's own kernels."""
+    kernels, with the shares of the port's own kernels; returns the
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1182,7 +1212,7 @@ def profiled(torch, fn, what, card, tag):
     if busy_ms <= 0:
         log(f"[{tag}] profiler: no device time recorded; busy share not "
             "measured")
-        return
+        return prof
     log(f"[{tag}] profiled {what}: wall {wall_ms:.1f} ms "
         f"(profiler on), device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} "
@@ -1200,6 +1230,7 @@ def profiled(torch, fn, what, card, tag):
             log(f"[{tag}] {what}: {ms:.2f} ms over "
                 f"{sum(e.count for e in mine)} launches, "
                 f"{ms / busy_ms:.3f} of device busy")
+    return prof
 
 
 CLI_IMAGES = 200   # two full batches of 96 and a partial one of 8

@@ -312,9 +312,9 @@ def _write_spans(path: str) -> None:
     """``spans.json``: the kept spans (:data:`FIELDS`), the snapshot, the
     kernels' launch counters as they stand and this process's peak device
     memory (None without a card)."""
-    from gstx_torch.kernels import attention, decode_attn, ffn
+    from gstx_torch import kernels
 
-    launches = {**ffn.launches, **attention.launches, **decode_attn.launches}
+    launches = {k: n for c in kernels.launch_counters() for k, n in c.items()}
     peak = torch.cuda.max_memory_allocated() \
         if torch.cuda.is_available() else None
     with open(path, "w") as f:

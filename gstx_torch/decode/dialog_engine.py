@@ -9,7 +9,10 @@ cached memory.
 
 Differences from the JAX engine, none of which changes the math:
   * PyTorch runs eagerly, so a round is a Python function and the decode
-    loop a Python loop with an early-EOS exit read on the host;
+    loop a Python loop with an early-EOS exit read on the host; on a card,
+    each decode step is one replay of a CUDA graph captured at first use,
+    one a model, batch, memory width and settings (:class:`DecodeGraphs`),
+    where the JAX engine compiles a round as one program;
   * the dialog context and the KV caches are updated in place;
   * the models carry their weights; the engine casts them to its dtype in
     place on first use (the JAX engine's one-time precast);
@@ -29,10 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gstx_torch import kernels
 from gstx_torch.core import profiling
 from gstx_torch.core.config import CLS_ID, PAD_ID, SEP_ID
 from gstx_torch.core.device import resolve_device
-from gstx_torch.decode.sampler import (DecodeSettings, init_cache,
+from gstx_torch.decode.sampler import (CapturedSampler, DecodeSettings,
+                                       init_cache, iteration_ops,
                                        sample_sequence)
 from gstx_torch.models import decoder as tdecoder
 from gstx_torch.models.encdec import (GSTVisualDialog,
@@ -91,6 +96,102 @@ def append_utterance(state: DialogState, utt, utt_len, segment: int,
     ), eff_len
 
 
+def captures(model: GSTVisualDialog, device: torch.device) -> bool:
+    """Whether the engine runs ``model``'s decode steps as CUDA graph
+    replays: on a card, with the whole model in this process.  Under a
+    model group the step's broadcast and collectives run eagerly."""
+    return device.type == "cuda" and model.tp is None
+
+
+class DecodeGraphs:
+    """An engine's captured decode steps (:class:`CapturedSampler`), made at
+    first use, one a (model, settings, memory shapes, n-gram source shape,
+    kernel switches, sampler functions): in the engine, a model's question
+    or answer at each memory width.  A graph replays the model as it was
+    when it was captured: a later patch of the model's code does not reach
+    it (a switch of a kernel, or a patch of the sampler's functions, takes
+    a new graph).
+
+    Each model's memory K/V and mask live in one static buffer each, sized
+    at the engine's full width; a width's graph reads a contiguous prefix of
+    them, laid out with the strides of the memory it stands for (so its
+    products see the layouts the eager step sees), and every utterance
+    copies its memory (and its n-gram source) into them before it replays.
+    Memory that does not fit (a larger batch than before) takes new
+    buffers, and the model's graphs are captured again.  The graphs share
+    one memory pool, one capture stream and one generator of the engine's,
+    registered with each; they replay one at a time."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.generator = torch.Generator(device)
+        self.memory = {}    # model -> flat buffers, one a memory tensor
+        self.samplers = {}  # key -> (CapturedSampler, views, n-gram buffer)
+
+    def sample(self, model, settings: DecodeSettings, mem_kv, mem_mask,
+               ngram_source, generator: torch.Generator, full_width: int):
+        """``sample_sequence``'s result for this utterance's memory, drawn
+        from ``generator``; ``full_width``: the widest memory the engine
+        can give ``model``."""
+        tensors = [t for layer in mem_kv for t in layer] + [mem_mask]
+        # what a capture fixes besides the shapes: the kernels' switches
+        # and the sampler's functions as they stand
+        key = (model, settings,
+               tuple((t.shape, t.stride(), t.dtype)
+                     for t in list(mem_kv[0]) + [mem_mask]),
+               None if ngram_source is None else ngram_source.shape,
+               kernels.switches(), iteration_ops())
+        flats = self._buffers(model, tensors, full_width)
+        entry = self.samplers.get(key)
+        if entry is None:
+            entry = self.samplers[key] = self._capture(
+                model, settings, mem_kv, tensors, flats, ngram_source)
+        sampler, views, ngram = entry
+        for dst, src in zip(views, tensors):
+            dst.copy_(src)
+        if ngram is not None:
+            ngram.copy_(ngram_source)
+        return sampler.sample(generator)
+
+    def _buffers(self, model, tensors, full_width: int):
+        # the memory is dense (a permutation of a contiguous tensor), so a
+        # view with its strides spans its number of elements
+        width = tensors[-1].shape[-1]
+        need = [-(-t.numel() * full_width // width) for t in tensors]
+        flats = self.memory.get(model)
+        if flats is None or any(f.numel() < n for f, n in zip(flats, need)):
+            self.samplers = {k: v for k, v in self.samplers.items()
+                             if k[0] is not model}
+            self.memory.pop(model, None)
+            flats = self.memory[model] = [
+                torch.zeros(n, dtype=t.dtype, device=self.device)
+                for n, t in zip(need, tensors)]
+        return flats
+
+    def _capture(self, model, settings, mem_kv, tensors, flats,
+                 ngram_source):
+        views = [f.as_strided(t.shape, t.stride())
+                 for f, t in zip(flats, tensors)]
+        per_layer = len(mem_kv[0])
+        kv = [tuple(views[i:i + per_layer])
+              for i in range(0, len(views) - 1, per_layer)]
+        mask = views[-1]
+        ngram = None if ngram_source is None else \
+            torch.zeros_like(ngram_source)
+        batch = mask.shape[0]
+        caches = init_cache(model.dec_config, batch, settings.max_steps + 1,
+                            model.dtype, self.device, model.dec.local_heads)
+
+        def step_fn(tok, pos, caches):
+            return model.decode_step(tok, pos, caches, kv, mask)
+        sampler = CapturedSampler(step_fn, batch, caches, settings, ngram,
+                                  self.generator, self.pool, self.stream,
+                                  bos_id=CLS_ID, eos_id=SEP_ID)
+        return sampler, views, ngram
+
+
 def make_dialog_engine(num_rounds: int = 10,
                        q_settings: DecodeSettings = DecodeSettings(
                            ngram_blocking_size=4),
@@ -127,8 +228,17 @@ def make_dialog_engine(num_rounds: int = 10,
     quantizes.  One-token decode steps then read the int8 memory through the
     ``quant_decode_attention`` kernel when
     ``gstx_torch.kernels.decode_attn.enable_kernel()`` is on.
+
+    On a card, a model without a model group decodes through CUDA graphs
+    (:func:`captures`, :class:`DecodeGraphs`), captured at the first
+    utterance of each model and memory width; the tokens, perplexities and
+    the generator's state after a batch are the eager loop's.  A patch of a
+    model's code made after its first utterance does not reach the graphs
+    already captured; the kernels' switches and ``decode.sampler``'s
+    functions are part of a graph's key, so changing them takes new graphs.
     """
     device = resolve_device(device)
+    graphs = None  # the engine's DecodeGraphs, made at the first capture
 
     def prepare(model: GSTVisualDialog) -> GSTVisualDialog:
         if model.device != device:
@@ -138,7 +248,8 @@ def make_dialog_engine(num_rounds: int = 10,
         return model
 
     def decode_utterance(model, state, image, generator, settings,
-                         ngram_source):
+                         ngram_source, full_width):
+        nonlocal graphs
         batch = state.enc_input_ids.shape[0]
         att = (state.enc_input_ids != PAD_ID).long()
         with profiling.span("gstx:encoder.memory"):
@@ -151,6 +262,13 @@ def make_dialog_engine(num_rounds: int = 10,
                 # (gstx/decode/dialog_engine.py:157-166)
                 mem_kv = tdecoder.quantize_memory_kv(mem_kv, mem_mask,
                                                      dtype)
+
+        if captures(model, device):
+            if graphs is None:
+                graphs = DecodeGraphs(device)
+            seq = graphs.sample(model, settings, mem_kv, mem_mask,
+                                   ngram_source, generator, full_width)
+            return seq, (mem_kv, mem_mask)
 
         def step_fn(tok, pos, caches):
             return model.decode_step(tok, pos, caches, mem_kv, mem_mask)
@@ -175,12 +293,13 @@ def make_dialog_engine(num_rounds: int = 10,
         ppl = torch.exp(nll.sum(-1) / ans_len.clamp(min=1))
         return ppl, inputs, ans_len
 
-    def one_round(q_model, a_model, state, image, generator):
-        """One dialog round: Q-decode, append, A-decode, ppl, append."""
+    def one_round(q_model, a_model, state, image, generator, full_width):
+        """One dialog round: Q-decode, append, A-decode, ppl, append.
+        ``full_width``: the memory's width at the full context."""
         # n-gram blocking source: earlier questions (segment id 0)
         hist_ques = state.enc_input_ids * (state.enc_segments == 0)
         ques, _ = decode_utterance(q_model, state, image, generator,
-                                   q_settings, hist_ques)
+                                   q_settings, hist_ques, full_width)
         # includes EOS; a PAD drawn before EOS undershoots the count, as
         # the reference's ques_ids[:ques_len] copy does
         ques_len = (ques != PAD_ID).sum(-1)
@@ -188,7 +307,7 @@ def make_dialog_engine(num_rounds: int = 10,
             state, _ = append_utterance(state, ques, ques_len, segment=0,
                                         write_segments=False)
         answ, (mem_kv, mem_mask) = decode_utterance(
-            a_model, state, image, generator, a_settings, None)
+            a_model, state, image, generator, a_settings, None, full_width)
         with profiling.span("gstx:engine.score"):
             ppl, ans_wo_eos, ans_len = answer_ppl(a_model, answ, mem_kv,
                                                   mem_mask)
@@ -272,8 +391,9 @@ def make_dialog_engine(num_rounds: int = 10,
                     state = _widen(state, target - cur_w)
             profiling.count("engine.rounds")
             with profiling.span("gstx:engine.round"):
-                state, ques, answ, ppl = one_round(q_model, a_model, state,
-                                                   image, generator)
+                state, ques, answ, ppl = one_round(
+                    q_model, a_model, state, image, generator,
+                    image["mask"].shape[1] + full_s)
             qs.append(ques)
             ans.append(answ)
             ppls.append(ppl)

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gstx_torch import kernels
 from gstx_torch.kernels import build
 
 # kernel launches per wrapper since the last reset_launches()
@@ -60,6 +61,9 @@ def enable(flag: bool = True):
 
 def is_enabled() -> bool:
     return _ENABLED
+
+
+kernels.register(launches, is_enabled)
 
 
 def reset_launches():

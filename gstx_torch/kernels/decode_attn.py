@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from gstx_torch import kernels
 from gstx_torch.kernels import build
 
 # kernel launches since the last reset_launches()
@@ -43,6 +44,9 @@ def enable_kernel(flag: bool = True):
 
 def is_kernel_enabled() -> bool:
     return _KERNEL_ENABLED
+
+
+kernels.register(launches, is_kernel_enabled)
 
 
 def reset_launches():

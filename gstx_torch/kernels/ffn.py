@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from gstx_torch import kernels
 from gstx_torch.kernels import build
 
 # kernel launches per wrapper since the last reset_launches()
@@ -67,6 +68,9 @@ def enable(flag: bool = True):
 
 def is_enabled() -> bool:
     return _ENABLED
+
+
+kernels.register(launches, is_enabled)
 
 
 def block_rows(m, d):

@@ -28,7 +28,7 @@ branch, so a training forward over it raises, as ``decoder.py:137-145``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -198,15 +198,25 @@ class DecoderLayer(nn.Module):
         x = self._cross_block(x, mem, mem_mask, train)
         return self._ffn_block(x, train)
 
-    def step(self, x, pos: int, cache: Cache, mem, mem_mask):
-        """One KV-cached decode step for x [B, 1, D] at position ``pos``.
-        JAX returns a new cache (``dynamic_update_slice``); here the cache
-        is written in place, which saves a copy of it per step."""
+    def step(self, x, pos: Union[int, torch.Tensor], cache: Cache, mem,
+             mem_mask):
+        """One KV-cached decode step for x [B, 1, D] at position ``pos``: a
+        Python int, or a 0-d int64 tensor on x's device, which the decode
+        step captured as a CUDA graph advances itself, so that one graph
+        serves every position (the cache write is then an ``index_copy_``
+        along the slot axis, and the self mask reads ``pos`` on the device);
+        both give the same result.  JAX returns a new cache
+        (``dynamic_update_slice``); here the cache is written in place,
+        which saves a copy of it per step."""
         with profiling.span("gstx:decoder.self_attn"):
             q, k, v = (split_heads(t, self.num_heads)
                        for t in self.attention.self(x))
-            cache["k"][:, :, pos] = k[:, :, 0]
-            cache["v"][:, :, pos] = v[:, :, 0]
+            if isinstance(pos, torch.Tensor):
+                cache["k"].index_copy_(2, pos.view(1), k)
+                cache["v"].index_copy_(2, pos.view(1), v)
+            else:
+                cache["k"][:, :, pos] = k[:, :, 0]
+                cache["v"][:, :, pos] = v[:, :, 0]
             # valid cache slots are [0, pos]; mask the rest
             slot = torch.arange(cache["k"].shape[2], device=x.device)
             smask = torch.where(slot <= pos, 0.0, MASK_VALUE).to(x.dtype)
@@ -304,8 +314,10 @@ class GSTDecoderModel(nn.Module):
         list of (k, v); :func:`quantize_memory_kv` makes the int8 form)."""
         return [layer.memory_kv(memory) for layer in self.layers]
 
-    def step(self, x, pos: int, caches: List[Cache], memory_kv,
-             memory_mask: Optional[torch.Tensor]):
+    def step(self, x, pos: Union[int, torch.Tensor], caches: List[Cache],
+             memory_kv, memory_mask: Optional[torch.Tensor]):
+        """Every layer's :meth:`DecoderLayer.step` at ``pos`` (an int or a
+        0-d tensor on the device)."""
         for layer, cache, mem in zip(self.layers, caches, memory_kv):
             x = layer.step(x, pos, cache, mem, memory_mask)
         return x

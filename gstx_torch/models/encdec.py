@@ -31,7 +31,7 @@ the full logits, gathered.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -270,13 +270,17 @@ class GSTVisualDialog(nn.Module):
         return (self.dec.precompute_memory(memory),
                 additive_mask(memory_mask, self.dtype))
 
-    def decode_step(self, token_ids, pos: int, caches, memory_kv,
-                    memory_add_mask):
-        """One decode step: token_ids [B, 1] at absolute position ``pos``.
-        Returns [B, vocab] float32 logits, the full vocab (gathered under a
-        sharded one); ``caches`` are updated in place."""
+    def decode_step(self, token_ids, pos: Union[int, torch.Tensor], caches,
+                    memory_kv, memory_add_mask):
+        """One decode step: token_ids [B, 1] at absolute position ``pos``, a
+        Python int or a 0-d int64 tensor on the device (the captured decode
+        step's; see ``GSTDecoderModel.step``).  Returns [B, vocab] float32
+        logits, the full vocab (gathered under a sharded one); ``caches``
+        are updated in place."""
         with profiling.span("gstx:decoder.embed"):
-            positions = torch.full_like(token_ids, pos)
+            positions = pos.expand(token_ids.shape) \
+                if isinstance(pos, torch.Tensor) \
+                else torch.full_like(token_ids, pos)
             x = self._embed_dec(token_ids, positions=positions)
         h = self.dec.step(x, pos, caches, memory_kv, memory_add_mask)
         with profiling.span("gstx:decoder.lm_head"):

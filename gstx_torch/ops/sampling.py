@@ -13,11 +13,17 @@
 Random draws come from an explicit ``torch.Generator``; they are not JAX's
 threefry numbers, so sampled tokens agree with the JAX package in
 distribution only (greedy decoding agrees token for token).
+
+Every op here reads nothing back to the host, so a CUDA graph can capture
+them (``gstx_torch/decode/sampler.py``'s captured decode step): the draw is
+written out (:func:`draw`), and :func:`ngram_block` takes its length as a
+tensor on the device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Tuple, Union
 
 import torch
 
@@ -33,8 +39,36 @@ def sample_token_topk(generator: torch.Generator, logits, k: int):
     cut to exactly k candidates."""
     vals, idx = torch.topk(logits, min(k, logits.shape[-1]), dim=-1)
     probs = torch.softmax(vals.float(), dim=-1)
-    choice = torch.multinomial(probs, 1, generator=generator)
-    return idx.gather(-1, choice)[..., 0]
+    return idx.gather(-1, draw(generator, probs))[..., 0]
+
+
+def draw(generator: torch.Generator, probs):
+    """One index a row of ``probs`` [B, N], drawn with those probabilities:
+    [B, 1] int64.  This is the draw ``torch.multinomial(probs, 1,
+    generator=generator)`` makes, written out: ``argmax(probs / q)`` with
+    ``q ~ Exp(1)`` from the same generator, so the same indices and the same
+    generator state after it.  Outside a CUDA graph's capture it makes
+    multinomial's check that the probabilities are finite, non-negative and
+    sum above 0, and raises as multinomial does; the check reads the device
+    from the host, which a capture cannot hold, so a captured draw goes
+    without it."""
+    if not (probs.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _check_probs(probs)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / q).argmax(-1, keepdim=True)
+
+
+def _check_probs(probs) -> None:
+    """``torch.multinomial``'s check of its probabilities, one read."""
+    valid, positive = torch.stack([
+        ((probs >= 0) & (probs < float("inf"))).all(),
+        (probs.sum(-1) > 0).all()]).tolist()
+    if not valid:
+        raise RuntimeError(
+            "probability tensor contains either `inf`, `nan` or element < 0")
+    if not positive:
+        raise RuntimeError(
+            "invalid multinomial distribution (sum of probabilities <= 0)")
 
 
 def top_k_filter(logits, top_k: int):
@@ -68,29 +102,43 @@ def top_k_top_p_filter(logits, top_k: int = 0, top_p: float = 0.0):
     return top_p_filter(top_k_filter(logits, top_k), top_p)
 
 
-def ngram_block(logits, source_ids, dec_input_ids, cur_len: int,
-                ngram_size: int,
+@functools.lru_cache(maxsize=None)
+def _id_tensor(ids: Tuple[int, ...], device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``ids`` as a tensor on ``device``, made once: a host-to-device copy
+    from pageable memory cannot be captured in a CUDA graph."""
+    return torch.tensor(ids, device=device, dtype=dtype)
+
+
+def ngram_block(logits, source_ids, dec_input_ids,
+                cur_len: Union[int, torch.Tensor], ngram_size: int,
                 special_token_ids: Tuple[int, ...] = SPECIAL_TOKEN_IDS):
     """Ban token x if the n-gram (last n-1 generated tokens, x) occurs in
     ``source_ids`` [B, S] with no special token inside the n-gram window.
     ``dec_input_ids`` [B, T] is the generated prefix (incl. BOS), of which
-    ``cur_len`` tokens are valid.  Blocking is a no-op while
-    cur_len < n-1 (the reference's dict lookup never matches then)."""
+    ``cur_len`` tokens are valid: a Python int, or a 0-d int64 tensor on the
+    device (the captured decode step's), read there and never on the host.
+    The generated tail is gathered by device indices, and the rule that
+    blocking is a no-op while cur_len < n-1 (the reference's dict lookup
+    never matches then) is a mask, as the JAX version gates it."""
     n = ngram_size
     if n <= 0:
         return logits
     b, s = source_ids.shape
-    if s < n or cur_len < n - 1:
-        return logits
-    windows = source_ids.unfold(1, n, 1)  # [B, S-n+1, n]
-    specials = torch.tensor(special_token_ids, device=source_ids.device,
-                            dtype=source_ids.dtype)
-    has_special = torch.isin(windows, specials).any(-1)
     t = dec_input_ids.shape[1]
-    start = min(max(cur_len - (n - 1), 0), t - (n - 1))
-    tail = dec_input_ids[:, start:start + n - 1]
+    if s < n or t < n - 1:
+        return logits  # no window, or no tail of n-1 tokens, can match
+    windows = source_ids.unfold(1, n, 1)  # [B, S-n+1, n]
+    specials = _id_tensor(tuple(special_token_ids), source_ids.device,
+                          source_ids.dtype)
+    has_special = torch.isin(windows, specials).any(-1)
+    # an int becomes a CPU scalar, which an op on the device takes as such
+    cur = torch.as_tensor(cur_len)
+    start = (cur - (n - 1)).clamp(0, t - (n - 1))
+    tail = dec_input_ids.index_select(
+        1, start + torch.arange(n - 1, device=dec_input_ids.device))
     match = (windows[..., :n - 1] == tail[:, None, :]).all(-1)
-    active = match & ~has_special
+    active = match & ~has_special & (cur >= n - 1)
     # a token banned by several windows: count, then test > 0 (a plain
     # scatter of booleans would let duplicate indices overwrite each other)
     hits = torch.zeros(logits.shape, dtype=torch.int32, device=logits.device)
@@ -101,7 +149,7 @@ def ngram_block(logits, source_ids, dec_input_ids, cur_len: int,
 def sample_token(generator: torch.Generator, logits):
     """Multinomial sample from softmax(logits); returns [B] int64."""
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    return draw(generator, probs)[..., 0]
 
 
 def pad_after_eos(sequence, eos_id: int, pad_id: int = 0):

@@ -788,3 +788,226 @@ def test_disc_step_grad_norms_match_unfused_on_the_card(dev):
     worst = max(abs(nk[k] - nu[k]) / max(nu[k], 1e-12) for k in nu
                 if not k.endswith(("key.bias", "key1.bias", "key2.bias")))
     assert worst <= 0.5, worst
+
+
+# ---------------------------------------------------------------------- #
+# the engine's decode step captured as CUDA graphs
+# ---------------------------------------------------------------------- #
+
+def _gen_models(dev, dtype):
+    """Two width-128 models (a questioner and a teacher) with two decoder
+    layers, +2.0 on [SEP]'s logit so that utterances end at different
+    steps; cast as the engine casts them."""
+    import dataclasses
+
+    from gstx_torch.models.encdec import GSTVisualDialog, precast_
+
+    enc, dec = _width128_configs()
+    dec = dataclasses.replace(dec, num_hidden_layers=2)
+    models = []
+    for seed in (5, 6):
+        m = GSTVisualDialog(enc, dec, device=dev, seed=seed)
+        with torch.no_grad():
+            m.dec.lm_head.bias[102] += 2.0
+        models.append(precast_(m, dtype))
+    return models
+
+
+def _gen_batch(dev, b=4, seq=64, regions=6, cap=10):
+    import numpy as np
+
+    rng = np.random.RandomState(4)
+    ids = np.zeros((b, seq), np.int64)
+    ids[:, 0], ids[:, cap - 1] = 101, 102
+    ids[:, 1:cap - 1] = rng.randint(104, 160, size=(b, cap - 2))
+    segs = np.zeros((b, seq), np.int64)
+    segs[:, :cap] = 1
+    batch = {"enc_input_ids": ids, "enc_segments": segs,
+             "enc_image_feat": rng.rand(b, regions, 16).astype(np.float32),
+             "enc_image_loc": rng.rand(b, regions, 5).astype(np.float32),
+             "enc_image_mask": np.ones((b, regions), np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _gen_engine(dtype, **kw):
+    """Six rounds at three memory widths, 4 steps an utterance."""
+    from gstx_torch.decode import dialog_engine
+    from gstx_torch.decode.sampler import DecodeSettings
+
+    return dialog_engine.make_dialog_engine(
+        num_rounds=6, dtype=dtype, context_buckets=(32, 48),
+        q_settings=DecodeSettings(max_steps=4, top_k=7,
+                                  ngram_blocking_size=4,
+                                  fused_sampler=True),
+        a_settings=DecodeSettings(max_steps=4, top_k=7,
+                                  ngram_blocking_size=0), **kw)
+
+
+def _run_engine(models, batch, dtype, captured, monkeypatch, **kw):
+    """One engine batch, collected, with the CLI's batch generator; the
+    output, the counters and the generator's state after it."""
+    from gstx_torch.cli.generate import batch_generator
+    from gstx_torch.core import profiling
+    from gstx_torch.decode import dialog_engine
+
+    if not captured:
+        monkeypatch.setattr(dialog_engine, "captures", lambda m, d: False)
+    engine = _gen_engine(dtype, **kw)
+    gen = batch_generator(17, 3, batch["enc_input_ids"].device)
+    profiling.reset()
+    try:
+        with profiling.collecting():
+            out = engine(models[0], models[1], batch, gen)
+            torch.cuda.synchronize()
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+        monkeypatch.undo()
+    return out, counters, gen.get_state()
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
+def test_graph_engine_matches_eager_engine(dev, monkeypatch, dtype, quant):
+    """The same batch generator's seed through the eager and the captured
+    decode step, three memory widths (6 + 32, 48, 64), both models: equal
+    questions, answers and perplexities, bit for bit, and the generator
+    left in the same state; one capture a model and width, one replay a
+    step.  With the int8 memory, the decode kernel runs inside the graphs,
+    and its counter counts its launches a replay."""
+    models = _gen_models(dev, dtype)
+    batch = _gen_batch(dev)
+    kdecode.enable_kernel(quant)
+    try:
+        kdecode.reset_launches()
+        want, c_eager, g_eager = _run_engine(
+            models, batch, dtype, False, monkeypatch, quantize_memory=quant)
+        eager_launches = kdecode.launches["quant_decode_attention"]
+        kdecode.reset_launches()
+        got, c, g = _run_engine(models, batch, dtype, True, monkeypatch,
+                                quantize_memory=quant)
+        launches = kdecode.launches["quant_decode_attention"]
+    finally:
+        kdecode.enable_kernel(False)
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(g, g_eager)
+    assert c["decode.graph_captures"] == 2 * 3
+    assert c["decode.graph_replays"] == c["decode.steps"] \
+        == c_eager["decode.steps"]
+    assert "decode.graph_replays" not in c_eager
+    layers = models[0].dec_config.num_hidden_layers
+    warmups = 3 * c["decode.graph_captures"]
+    assert eager_launches == (layers * c["decode.steps"] if quant else 0)
+    assert launches == (layers * (c["decode.steps"] + warmups)
+                        if quant else 0)
+
+
+def test_greedy_graph_logits_bit_identical(dev):
+    """Greedy (top-k 1), bf16: every step's logits from the captured
+    iteration equal the eager iteration's, bit for bit."""
+    from gstx_torch.decode import sampler
+
+    model = _gen_models(dev, torch.bfloat16)[0]
+    batch = _gen_batch(dev)
+    ids = batch["enc_input_ids"]
+    settings = sampler.DecodeSettings(max_steps=6, top_k=1,
+                                      ngram_blocking_size=4,
+                                      fused_sampler=True)
+    with torch.no_grad():
+        kv, mask = model.decode_prepare(
+            ids, batch["enc_image_feat"], batch["enc_image_loc"],
+            batch["enc_segments"], (ids != 0).long(),
+            batch["enc_image_mask"])
+        ngram = ids * (batch["enc_segments"] == 0)
+        logs = [torch.zeros(settings.max_steps, ids.shape[0], 160,
+                            device=dev) for _ in range(2)]
+
+        def step_fn(log):
+            def step(tok, pos, caches):
+                logits = model.decode_step(tok, pos, caches, kv, mask)
+                log.index_copy_(0, pos.view(1), logits[None])
+                return logits
+            return step
+
+        def caches():
+            return sampler.init_cache(model.dec_config, ids.shape[0],
+                                      settings.max_steps + 1, model.dtype,
+                                      dev)
+        eager = sampler.new_state(ids.shape[0], settings.max_steps, 101, dev)
+        gen = torch.Generator(dev)
+        eager_caches = caches()
+        for _ in range(settings.max_steps):
+            sampler.iteration(step_fn(logs[0]), gen, eager, eager_caches,
+                              settings, ngram)
+        captured = sampler.CapturedSampler(
+            step_fn(logs[1]), ids.shape[0], caches(), settings, ngram,
+            torch.Generator(dev), torch.cuda.graph_pool_handle(),
+            torch.cuda.Stream(dev))
+        logs[1].zero_()
+        captured.sample(torch.Generator(dev))
+        torch.cuda.synchronize()
+    steps = int(captured.state.pos)
+    assert steps > 0
+    assert torch.equal(logs[1][:steps], logs[0][:steps])
+    assert torch.equal(captured.state.tokens[:, :steps + 1],
+                       eager.tokens[:, :steps + 1])
+
+
+def test_patched_sampler_reaches_the_graph(dev, monkeypatch):
+    """A patch of ``sampler.sample_token_topk`` made before the engine's
+    first batch is captured with it: the graph path's tokens change, to the
+    patched eager path's."""
+    from gstx_torch.decode import sampler
+
+    models = _gen_models(dev, torch.bfloat16)
+    batch = _gen_batch(dev)
+    plain, _, _ = _run_engine(models, batch, torch.bfloat16, True,
+                              monkeypatch)
+    topk = sampler.sample_token_topk
+    outs = []
+    for captured in (True, False):
+        monkeypatch.setattr(sampler, "sample_token_topk",
+                            lambda *a: (topk(*a) + 1) % 160)
+        outs.append(_run_engine(models, batch, torch.bfloat16, captured,
+                                monkeypatch)[0])
+    assert not torch.equal(outs[0].questions, plain.questions)
+    assert torch.equal(outs[0].questions, outs[1].questions)
+    assert torch.equal(outs[0].answers, outs[1].answers)
+
+
+def test_traced_decode_kernel_launches_match_the_counter(dev):
+    """The int8 decode kernel inside the graphs, seen in a profiler trace
+    of a batch on a warm engine (replays only, no capture): as many
+    quant_decode_kernel events as the wrapper's counter adds on replay,
+    every layer of every decode step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gstx_torch.cli.generate import batch_generator
+    from gstx_torch.core import profiling
+
+    models = _gen_models(dev, torch.bfloat16)
+    batch = _gen_batch(dev)
+    engine = _gen_engine(torch.bfloat16, quantize_memory=True)
+    kdecode.enable_kernel(True)
+    try:
+        engine(models[0], models[1], batch, batch_generator(17, 3, dev))
+        torch.cuda.synchronize()
+        kdecode.reset_launches()
+        profiling.reset()
+        with profiling.collecting(), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine(models[0], models[1], batch, batch_generator(17, 4, dev))
+            torch.cuda.synchronize()
+        c = profiling.snapshot()["counters"]
+        counted = kdecode.launches["quant_decode_attention"]
+    finally:
+        kdecode.enable_kernel(False)
+        profiling.reset()
+    traced = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "quant_decode_kernel" in e.key)
+    assert "decode.graph_captures" not in c
+    assert c["decode.graph_replays"] == c["decode.steps"] > 0
+    layers = models[0].dec_config.num_hidden_layers
+    assert traced == counted == layers * c["decode.steps"]

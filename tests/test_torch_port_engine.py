@@ -4,6 +4,7 @@ greedy decoding agrees token for token; sampled decoding agrees in
 distribution (torch's generator is not JAX's threefry)."""
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -262,3 +263,278 @@ def test_cuda_request_without_card_raises():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError):
         make_dialog_engine(device="cuda")
+
+
+# ---------------------------------------------------------------------- #
+# the decode step's position on the device (the captured decode step)
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decoder_step_tensor_pos_matches_int(engine_setup, quant):
+    """``decode_step`` with ``pos`` a 0-d tensor gives the int form's logits
+    and caches, bit for bit, at every position of an utterance."""
+    from gstx_torch.models.decoder import quantize_memory_kv
+
+    enc, dec, _, _, (model, _) = engine_setup
+    batch = make_gen_batch(enc, b=3, seq_len=32, regions=7, cap_len=10)
+    ids = torch.from_numpy(batch["enc_input_ids"]).long()
+    with torch.no_grad():
+        mem_kv, mem_mask = model.decode_prepare(
+            ids, torch.from_numpy(batch["enc_image_feat"]),
+            torch.from_numpy(batch["enc_image_loc"]),
+            torch.from_numpy(batch["enc_segments"]).long(),
+            (ids != 0).long(), torch.from_numpy(batch["enc_image_mask"]))
+        if quant:
+            mem_kv = quantize_memory_kv(mem_kv, mem_mask, torch.float32)
+        toks = torch.from_numpy(np.random.RandomState(6).randint(
+            1, dec.vocab_size, size=(3, 7))).long()
+        caches = [tsampler.init_cache(dec, 3, 8, torch.float32, "cpu")
+                  for _ in range(2)]
+        for i in range(7):
+            by_int = model.decode_step(toks[:, i:i + 1], i, caches[0],
+                                       mem_kv, mem_mask)
+            by_tensor = model.decode_step(toks[:, i:i + 1], torch.tensor(i),
+                                          caches[1], mem_kv, mem_mask)
+            assert torch.equal(by_int, by_tensor), i
+            for a, b in zip(caches[0], caches[1]):
+                assert torch.equal(a["k"], b["k"]) and \
+                    torch.equal(a["v"], b["v"]), i
+
+
+def _ngram_inputs():
+    rng = np.random.RandomState(2)
+    b, s, t = 4, 40, 8
+    src = rng.randint(104, 112, size=(b, s)).astype(np.int32)
+    src[1, 5] = 102  # a special token inside some windows
+    dec = rng.randint(104, 112, size=(b, t)).astype(np.int32)
+    dec[:, 0] = 101
+    dec[0, 1:4] = src[0, 7:10]  # a guaranteed match
+    dec[2, 1:4] = src[2, 0:3]
+    logits = rng.randn(b, 120).astype(np.float32)
+    return src, dec, logits
+
+
+@pytest.mark.parametrize("cur_len", range(9))
+def test_ngram_block_tensor_cur_len_matches_int(cur_len):
+    """Every length of the generated prefix, the gated ones below n - 1
+    included: a 0-d tensor ``cur_len`` gives the int form's logits, which
+    are JAX's."""
+    src, dec, logits = _ngram_inputs()
+    args = (torch.from_numpy(logits), torch.from_numpy(src).long(),
+            torch.from_numpy(dec).long())
+    by_int = tsampling.ngram_block(*args, cur_len, 4)
+    by_tensor = tsampling.ngram_block(*args, torch.tensor(cur_len), 4)
+    np.testing.assert_array_equal(by_tensor.numpy(), by_int.numpy())
+    want = np.asarray(jsampling.ngram_block(
+        jnp.asarray(logits), jnp.asarray(src), jnp.asarray(dec), cur_len, 4))
+    np.testing.assert_array_equal(by_int.numpy(), want)
+    if cur_len < 3:  # gated: no tail of n - 1 tokens yet
+        np.testing.assert_array_equal(by_tensor.numpy(), logits)
+    if cur_len == 4:  # the tail of row 0 is src[0, 7:10]
+        assert by_tensor.numpy()[0, src[0, 10]] == tsampling.NEG_INF
+
+
+def _loop_before(step_fn, generator, batch, settings, ngram_source, bos_id,
+                 eos_id):
+    """The sampler's loop as it was with an int position and
+    ``torch.multinomial``: the reference of the refactored one."""
+    tokens = torch.zeros((batch, settings.max_steps + 1), dtype=torch.long)
+    tokens[:, 0] = bos_id
+    done = torch.zeros(batch, dtype=torch.bool)
+    for step in range(settings.max_steps):
+        logits = step_fn(tokens[:, step:step + 1], step, None)
+        logits = logits / settings.temperature
+        logits = tsampling.ngram_block(logits, ngram_source, tokens,
+                                       step + 1,
+                                       settings.ngram_blocking_size)
+        if settings.fused_sampler:
+            vals, idx = torch.topk(logits, settings.top_k, dim=-1)
+            probs = torch.softmax(vals.float(), dim=-1)
+            nxt = idx.gather(-1, torch.multinomial(
+                probs, 1, generator=generator))[..., 0]
+        else:
+            logits = tsampling.top_k_top_p_filter(logits, settings.top_k,
+                                                  settings.top_p)
+            nxt = torch.multinomial(torch.softmax(logits.float(), -1), 1,
+                                    generator=generator)[..., 0]
+        tokens[:, step + 1] = nxt
+        done |= nxt == eos_id
+        if bool(done.all()):
+            break
+    return tsampling.pad_after_eos(tokens[:, 1:], eos_id, 0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sampler_loop_matches_the_loop_before(fused):
+    """Sampled at T 0.7, top-k 7, 3-gram blocking: the refactored loop (a
+    tensor position, the written-out draw) gives the tokens and leaves the
+    generator where the loop before it did."""
+    table, pos_bias = _fixed_step_tables(v=40, t=12, seed=7)
+    settings = tsampler.DecodeSettings(max_steps=11, temperature=0.7,
+                                       top_k=7, ngram_blocking_size=3,
+                                       fused_sampler=fused)
+    src = torch.from_numpy(np.random.RandomState(8).randint(
+        3, 40, size=(6, 30))).long()
+
+    def step(tok, pos, caches):
+        return torch.from_numpy(table)[tok[:, 0]] + \
+            torch.from_numpy(pos_bias)[pos]
+
+    gens = [torch.Generator().manual_seed(13) for _ in range(2)]
+    want = _loop_before(step, gens[0], 6, settings, src, 1, 2)
+    got = tsampler.sample_sequence(step, gens[1], 6, None, settings,
+                                   ngram_source=src, bos_id=1, eos_id=2,
+                                   device="cpu")
+    assert torch.equal(got, want)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert len(set(got.flatten().tolist())) > 7  # the draws vary
+
+
+class _ReplayedEagerly:
+    """A stand-in for ``torch.cuda.CUDAGraph`` whose replay calls the
+    iteration the capture was given."""
+
+    def register_generator_state(self, generator):
+        self.generator = generator
+
+
+def _capture_eagerly(graph, fn, pool, stream, warmup):
+    for _ in range(warmup):
+        fn()
+    graph.replay = fn
+    return []
+
+
+def test_engine_graph_path_with_eager_replays(engine_setup, monkeypatch):
+    """The engine's captured path on the CPU, each replay a call of the
+    iteration it captured: its static memory at three widths, the copies
+    into it, the keys, the caches' reset and the generator's hand-over give
+    the eager engine's dialogs, perplexities and generator state, with one
+    capture a model and width and one replay a step."""
+    from gstx_torch.decode import dialog_engine
+
+    enc, _, _, _, (q_model, a_model) = engine_setup
+    batch = make_gen_batch(enc, b=3, seq_len=48, regions=7, cap_len=10)
+    kw = dict(q_settings=tsampler.DecodeSettings(
+        max_steps=4, top_k=7, ngram_blocking_size=4, fused_sampler=True),
+        a_settings=tsampler.DecodeSettings(max_steps=4, top_k=7,
+                                           ngram_blocking_size=0),
+        num_rounds=5, context_buckets=(24, 36), device="cpu")
+    gens = [torch.Generator().manual_seed(21) for _ in range(2)]
+    want = make_dialog_engine(**kw)(q_model, a_model, batch, gens[0])
+
+    monkeypatch.setattr(dialog_engine, "captures", lambda model, dev: True)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _ReplayedEagerly)
+    monkeypatch.setattr(tsampler, "_capture", _capture_eagerly)
+    profiling.reset()
+    with profiling.collecting():
+        got = make_dialog_engine(**kw)(q_model, a_model, batch, gens[1])
+    c = profiling.snapshot()["counters"]
+    profiling.reset()
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    # widths 7 + (24, 36, 48): both models meet all three
+    assert c["decode.graph_captures"] == 6
+    assert c["decode.graph_replays"] == c["decode.steps"] > 0
+
+
+def test_graph_key_follows_switches_and_sampler_functions(engine_setup,
+                                                          monkeypatch):
+    """A graph fixes the kernels' switches and the sampler's functions it
+    was captured with: the engine's next batch with a switch turned, or
+    with ``sampler.sample_token_topk`` patched, captures new graphs (and
+    the patch reaches the tokens); a batch with neither changed captures
+    nothing."""
+    from gstx_torch.decode import dialog_engine
+    from gstx_torch.kernels import attention as kattn
+
+    enc, _, _, _, (q_model, a_model) = engine_setup
+    batch = make_gen_batch(enc, b=2, seq_len=32, regions=5, cap_len=8)
+    monkeypatch.setattr(dialog_engine, "captures", lambda model, dev: True)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _ReplayedEagerly)
+    monkeypatch.setattr(tsampler, "_capture", _capture_eagerly)
+    engine = make_dialog_engine(
+        q_settings=tsampler.DecodeSettings(
+            max_steps=3, top_k=7, ngram_blocking_size=4, fused_sampler=True),
+        a_settings=tsampler.DecodeSettings(max_steps=3, top_k=7,
+                                           ngram_blocking_size=0),
+        num_rounds=2, device="cpu")
+
+    def captures(**patch):
+        gen = torch.Generator().manual_seed(5)
+        profiling.reset()
+        with profiling.collecting():
+            out = engine(q_model, a_model, batch, gen)
+        c = profiling.snapshot()["counters"]
+        profiling.reset()
+        return c.get("decode.graph_captures", 0), out
+
+    first, plain = captures()
+    assert first == 2  # one width, both models
+    assert captures()[0] == 0
+    monkeypatch.setattr(kattn, "_ENABLED", not kattn.is_enabled())
+    assert captures()[0] == 2
+    topk = tsampler.sample_token_topk
+    monkeypatch.setattr(tsampler, "sample_token_topk",
+                        lambda *a: (topk(*a) + 1) % 100)
+    n, patched = captures()
+    assert n == 2
+    assert not torch.equal(patched.questions, plain.questions)
+
+
+def test_capture_moves_the_capture_launches_to_each_replay(monkeypatch):
+    """``sampler._capture`` takes what the captured call counted off every
+    registered launch counter and leaves the warm-up calls' launches; each
+    replay of a ``CapturedSampler`` adds the captured call's back."""
+    import contextlib
+
+    from gstx_torch import kernels
+
+    monkeypatch.setattr(kernels, "_MODULES", list(kernels._MODULES))
+    old, new = {"k_old": 0}, {"k_new": 0}
+    for c in (old, new):
+        kernels.register(c, lambda: True)
+
+    def fn():
+        old["k_old"] += 2
+        new["k_new"] += 1
+
+    class _Stream:
+        device = None
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    launches = tsampler._capture(None, fn, None, _Stream(), 1)
+    assert old == {"k_old": 2} and new == {"k_new": 1}  # the warm-up's
+    assert sorted((k, n) for _, k, n in launches) == [("k_new", 1),
+                                                      ("k_old", 2)]
+    replaying = tsampler.CapturedSampler.__new__(tsampler.CapturedSampler)
+    replaying.graph = type("G", (), {"replay": lambda self: None})()
+    replaying._launches = launches
+    for _ in range(3):
+        replaying._replay()
+    assert old == {"k_old": 8} and new == {"k_new": 4}
+
+
+@pytest.mark.parametrize("probs", [
+    [[0.5, float("nan")]], [[0.5, float("inf")]], [[0.5, -0.1]],
+    [[0.2, 0.8], [0.0, 0.0]]], ids=["nan", "inf", "negative", "zero"])
+def test_draw_refuses_what_multinomial_refuses(probs):
+    """Outside a capture, the written-out draw raises where
+    ``torch.multinomial`` does, with its message."""
+    probs = torch.tensor(probs)
+    with pytest.raises(RuntimeError) as want:
+        torch.multinomial(probs, 1, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match=re.escape(str(want.value))):
+        tsampling.draw(torch.Generator(), probs)
