@@ -5,8 +5,9 @@
            the CUDA kernels from gstx_torch/kernels/csrc with nvcc (sm_90a):
            ptxas's registers and spills per kernel, and a cuobjdump SASS
            census of the attention, dense_ln and FFN kernels (a bf16
-           attention, a dense_ln or an FFN instance without HMMA and LDGSTS
-           instructions fails);
+           attention, a dense_ln or an mma.sync FFN instance without HMMA
+           and LDGSTS instructions fails, and so does a warp-specialised
+           FFN instance, ffn_kernel_sm90, without HGMMA and UTMALDG);
   phase 2  each kernel against its plain PyTorch version at every shape
            the main paths give it plus a ragged one (and, for attention,
            K/V views whose rows past Lk hold NaN; for fused_dense_ln and
@@ -18,7 +19,10 @@
            count ends in a partial 32-row block; and random_token's refill
            of one context, 256 text rows through the attacker's layers
            and the dialog encoder's, 37 visual rows): bf16 fused_dense_ln,
-           fused_ffn, fused_attention and fused_attention_batch within
+           fused_ffn (its mma.sync and its warp-specialised design, by
+           kffn.takes_wgmma; every D = 768 row also runs both designs
+           through their C entries, held and timed beside the wrapper),
+           fused_attention and fused_attention_batch within
            |kernel - plain| <= 1e-2 + 1.6e-2 * |plain| (about 2 bf16 ulps);
            quant_decode_attention (f32 out of exact int8 operands) within
            5e-3 + 1e-4 * |plain|, also at phase 11's beam shape (B*K
@@ -266,6 +270,7 @@ directory without gstx_torch.
                                            # 96 images, (d) at 72 rows
                                            # with a warm step
     python3 chip_smoke.py --tp-cards 1     # phase 15 alone, one card
+    python3 chip_smoke.py --kernels        # phases 1-2 alone
 """
 
 import contextlib
@@ -364,10 +369,11 @@ def demangle(names):
 def build_census(build):
     """Phase 1: ptxas's registers and spills for every kernel, and the
     attention, dense_ln and FFN kernels' instructions in the built
-    library's SASS: tensor-core products (HMMA), asynchronous copies
-    (LDGSTS), ldmatrix (LDSM) and f32 FMAs (FFMA).  Fails if a bf16
-    (mma_attention_kernel), a dense_ln_kernel or an ffn_kernel instance has
-    no HMMA or no LDGSTS."""
+    library's SASS: tensor-core products (HMMA; HGMMA for wgmma),
+    asynchronous copies (LDGSTS; UTMALDG for TMA), ldmatrix (LDSM) and f32
+    FMAs (FFMA).  Fails if a bf16 (mma_attention_kernel), a dense_ln_kernel
+    or an mma.sync ffn_kernel instance has no HMMA or no LDGSTS, or an
+    ffn_kernel_sm90 instance no HGMMA or no UTMALDG."""
     text = "\n".join(build.build_log)
     segs = re.split(r"Compiling entry function '", text)[1:]
     spills = {"dense_ln_kernel": [], "ffn_kernel": []}
@@ -400,11 +406,16 @@ def build_census(build):
                            b.split()[0])]
     for name, block in zip(demangle([b.split()[0] for b in blocks]), blocks):
         counts = {op: len(re.findall(rf"\b{op}\b", block))
-                  for op in ("HMMA", "LDGSTS", "LDSM", "FFMA")}
+                  for op in ("HMMA", "LDGSTS", "LDSM", "FFMA", "HGMMA",
+                             "UTMALDG")}
         log(f"[phase 1] SASS {name}: " + ", ".join(
             f"{op} {n}" for op, n in counts.items()))
-        if re.search(r"mma_attention_kernel|ffn_kernel|dense_ln_kernel",
-                     name) and \
+        if "ffn_kernel_sm90" in name:
+            if not (counts["HGMMA"] and counts["UTMALDG"]):
+                raise AssertionError(f"{name}: no wgmma or TMA instruction "
+                                     "in its SASS")
+        elif re.search(r"mma_attention_kernel|ffn_kernel|dense_ln_kernel",
+                       name) and \
                 not (counts["HMMA"] and counts["LDGSTS"]):
             raise AssertionError(f"{name}: no tensor-core or cp.async "
                                  "instruction in its SASS")
@@ -505,7 +516,10 @@ FFN_SHAPES = [("text 24576x768x3072", 24576, 768, 3072),
               ("beam text 8192x768x3072", 8192, 768, 3072),
               ("beam visual 1184x1024x1024", 1184, 1024, 1024),
               ("selftrain tail text 6144x768x3072", 6144, 768, 3072),
-              ("selftrain tail visual 888x1024x1024", 888, 1024, 1024)]
+              ("selftrain tail visual 888x1024x1024", 888, 1024, 1024),
+              # where 64-row blocks first fill the card, and just past
+              ("one wave 8448x768x3072", 8448, 768, 3072),
+              ("two waves 9216x768x3072", 9216, 768, 3072)]
 
 
 def ffn_inputs(torch, randn, m, d, f):
@@ -517,6 +531,37 @@ def ffn_inputs(torch, randn, m, d, f):
     g, be = randn(d, scale=0.1, shift=1.0, dtype=f32), \
         randn(d, scale=0.1, dtype=f32)
     return x, w1, b1, w2, b2, g, be
+
+
+def ffn_designs(torch, kffn, held, label, args):
+    """Both fused_ffn designs by their C entries at one shape, each held
+    against the plain version and timed: the mma.sync kernel at block_rows'
+    rows (mma_sync_ms) and the warp-specialised one (wgmma_ms)."""
+    from gstx_torch.kernels import build
+
+    lib = build.library()
+    x, w1 = args[0], args[1]
+    m, d, f = x.shape[0], x.shape[1], w1.shape[0]
+    plain = kffn.ffn_plain(*args)
+    ptrs = [a.data_ptr() for a in args]
+    out = torch.empty_like(x)
+
+    def entry(name, fn, *tail):
+        def call():
+            build.check(fn(*ptrs, out.data_ptr(), m, d, f, *tail, 1e-12,
+                           torch.cuda.current_stream().cuda_stream), name)
+            return out
+        return call
+
+    calls = {"mma_sync_ms": entry("gstx_ffn", lib.gstx_ffn,
+                                  kffn.block_rows(m, d)),
+             "wgmma_ms": entry("gstx_ffn_sm90", lib.gstx_ffn_sm90)}
+    got = {}
+    for key, call in calls.items():
+        got[key.replace("_ms", "_err")] = held("fused_ffn", f"{label} {key}",
+                                               call(), plain)
+        got[key] = time_ms(call)
+    return got
 
 
 def kernel_phase(torch, kffn, kattn, kdecode):
@@ -588,7 +633,11 @@ def kernel_phase(torch, kffn, kattn, kdecode):
                          ms=time_ms(lambda: kffn.fused_ffn(*args)),
                          plain_ms=time_ms(lambda: kffn.ffn_plain(*args)),
                          bound_ms=bms, bound_by=by, library_ms=lib,
-                         block_rows=kffn.block_rows(m, d)))
+                         block_rows=kffn.block_rows(m, d),
+                         design="wgmma" if kffn.takes_wgmma(d, f)
+                         else "mma.sync"))
+        if d == kffn.WGMMA_WIDTH:
+            rows[-1].update(ffn_designs(torch, kffn, held, label, args))
         log(f"[phase 2] fused_ffn {label}: " + json.dumps(rows[-1]))
     entries.append(("fused_ffn", "gstx/kernels/ffn.py:198", rows))
     entries += attention_rows(torch, F, kattn, randn, held)
@@ -4218,7 +4267,7 @@ RANK_TASKS = {"step": rank_step, "cli": rank_cli, "pair": rank_pair,
 
 
 SOURCES = {"fused_dense_ln": "gstx_torch/kernels/csrc/ffn.cu",
-           "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu",
+           "fused_ffn": "gstx_torch/kernels/csrc/ffn.cu, ffn_sm90.cu",
            "fused_attention": "gstx_torch/kernels/csrc/attention.cu",
            "fused_attention_batch": "gstx_torch/kernels/csrc/attention.cu",
            "quant_decode_attention": "gstx_torch/kernels/csrc/decode_attn.cu"}
@@ -4440,6 +4489,37 @@ def tp_cards_main(worlds):
     return 0
 
 
+def kernels_main():
+    """``python3 chip_smoke.py --kernels``: phases 1 and 2 alone (the
+    build, its census, every kernel against its plain version and timed)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --kernels: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from gstx_torch.kernels import attention as kattn
+    from gstx_torch.kernels import build
+    from gstx_torch.kernels import decode_attn as kdecode
+    from gstx_torch.kernels import ffn as kffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[phase 1] card: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    build.library()
+    for text in build.build_log:
+        print(text, file=sys.stderr)
+    build_census(build)
+    entries, _ = kernel_phase(torch, kffn, kattn, kdecode)
+    log(json.dumps({"kernels": [{"name": n, "shapes": rows}
+                                for n, _, rows in entries]}))
+    log(f"[kernels] passed on {card}")
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank":
         sys.exit(rank_main(sys.argv[2]))
@@ -4447,4 +4527,6 @@ if __name__ == "__main__":
         sys.exit(dp_cards_main([int(n) for n in sys.argv[2:]]))
     if len(sys.argv) > 2 and sys.argv[1] == "--tp-cards":
         sys.exit(tp_cards_main([int(n) for n in sys.argv[2:]]))
+    if sys.argv[1:] == ["--kernels"]:
+        sys.exit(kernels_main())
     sys.exit(main())

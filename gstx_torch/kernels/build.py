@@ -101,6 +101,8 @@ def library() -> ctypes.CDLL:
         lib.gstx_dense_ln.restype = i32
         lib.gstx_ffn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, f32, ptr]
         lib.gstx_ffn.restype = i32
+        lib.gstx_ffn_sm90.argtypes = [ptr] * 8 + [i32, i32, i32, f32, ptr]
+        lib.gstx_ffn_sm90.restype = i32
         lib.gstx_attention.argtypes = (
             [ptr] * 5 + [i32] * 5
             + [ctypes.POINTER(ctypes.c_longlong), f32, i32, i32, ptr])

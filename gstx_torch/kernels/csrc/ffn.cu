@@ -64,11 +64,11 @@
 // SXM at 700 W; PERF.md): the ring alone, with no math, takes 0.83 ms (the
 // L2 -> SM stream at ~4.3 TB/s), the math alone 0.87 ms (266 TFLOP/s, a
 // quarter of the bf16 peak: four warps per SM sub-partition, all in the same
-// phase between barriers), and the two overlap only in part.  mma.sync and not
-// wgmma: the building blocks (sm90_mma.cuh) already hold on the card in the
-// attention kernels.  wgmma (operands from shared memory without ldmatrix)
-// and a TMA multicast of each weight tile across a 2-CTA cluster (half the
-// L2 traffic) are the next steps.
+// phase between barriers), and the two overlap only in part.  At D = 768
+// kernels/ffn.py (takes_wgmma) sends every call to ffn_sm90.cu instead (TMA
+// ring, wgmma, warp specialisation: 0.60 ms at the text shape); ffn_kernel
+// keeps the other widths, D = 1,024 among them, whose [64, 1,024] f32
+// accumulator does not fit two warpgroups' registers.
 //
 // C interface (ctypes): every entry returns a cudaError_t as int, the
 // launch's cudaGetLastError(); the caller raises on non-zero.

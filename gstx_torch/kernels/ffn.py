@@ -1,7 +1,8 @@
 """Fused feed-forward and projection-LayerNorm epilogues.
 
-The port of ``gstx/kernels/ffn.py``: two hand-written CUDA kernels for
-Hopper (``csrc/ffn.cu``) and their plain PyTorch versions.
+The port of ``gstx/kernels/ffn.py``: hand-written CUDA kernels for Hopper
+(``csrc/ffn.cu``, and ``csrc/ffn_sm90.cu`` for the FFN at D = 768) and their
+plain PyTorch versions.
 
   * :func:`fused_dense_ln` -- ``LayerNorm(residual + x @ W^T + b)``, the
     attention-output projection with its residual LayerNorm (reference
@@ -10,7 +11,9 @@ Hopper (``csrc/ffn.cu``) and their plain PyTorch versions.
   * :func:`fused_ffn` -- ``LayerNorm(x + gelu(x @ W1^T + b1) @ W2^T + b2)``
     with the [M, F] hidden kept on chip (reference BertIntermediate +
     BertOutput, exact-erf GELU); replaces ``_ffn_pallas``
-    (``gstx/kernels/ffn.py:198``).
+    (``gstx/kernels/ffn.py:198``).  Two designs compute it, chosen from the
+    call's widths alone (:func:`takes_wgmma`): a warp-specialised kernel
+    (TMA ring, wgmma) at D = 768, and the mma.sync kernel at the others.
 
 Weights are in ``nn.Linear`` layout ([out, in]).  Numerics: products
 accumulate in f32; bias, residual, GELU and LayerNorm (eps inside the rsqrt)
@@ -24,7 +27,9 @@ declines the others, and the wrappers raise on them.  The switch
 kernels at all; the CLIs set it from ``-use_pallas``.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  There is no fallback from the kernel to the plain version.  Each
-wrapper counts its kernel launches in :data:`launches`.
+wrapper counts its kernel launches in :data:`launches`; the FFN also counts,
+in the program's registry while it collects, ``ffn.calls`` (every launch)
+and ``ffn.wgmma_calls`` (those that took the D = 768 design).
 
 Both wrappers differentiate (:class:`FusedDenseLN`, :class:`FusedFFN`, the
 counterparts of the JAX package's ``jax.custom_vjp``,
@@ -39,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from gstx_torch import kernels
+from gstx_torch.core import profiling
 from gstx_torch.kernels import build
 
 # kernel launches per wrapper since the last reset_launches()
@@ -78,6 +84,21 @@ def block_rows(m, d):
     [64, d] f32 accumulator fits the register file (d <= 768) and 64-row
     blocks fill the card at least once (m >= 64 * SM_COUNT), else 32."""
     return 64 if d <= 768 and m >= 64 * SM_COUNT else 32
+
+
+# fused_ffn's warp-specialised design (csrc/ffn_sm90.cu): its one output
+# width and its F chunk.  It takes every call of that width, whatever M:
+# timed against the mma.sync kernel at every D = 768 shape of the port (64
+# to 128,000 rows), it was the faster at each (PERF.md).
+WGMMA_WIDTH = 768
+WGMMA_CHUNK = 64
+
+
+def takes_wgmma(d, f):
+    """Whether an FFN call of output width d and inner width f runs the
+    warp-specialised kernel (else the mma.sync one): d = 768 and whole F
+    chunks.  A function of the shape alone."""
+    return d == WGMMA_WIDTH and f % WGMMA_CHUNK == 0
 
 
 def widths_taken(d, inner):
@@ -197,10 +218,17 @@ def _ffn_forward(x, w1, b1, w2, b2, gamma, beta, eps):
     if m:
         lib = build.library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        build.check(lib.gstx_ffn(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, d, f, block_rows(m, d), float(eps), stream), "fused_ffn")
+        ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                out.data_ptr())
+        if takes_wgmma(d, f):
+            build.check(lib.gstx_ffn_sm90(*ptrs, m, d, f, float(eps), stream),
+                        "fused_ffn")
+            profiling.count("ffn.wgmma_calls")
+        else:
+            build.check(lib.gstx_ffn(*ptrs, m, d, f, block_rows(m, d),
+                                     float(eps), stream), "fused_ffn")
+        profiling.count("ffn.calls")
         launches["fused_ffn"] += 1
     return out
 

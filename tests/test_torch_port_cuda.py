@@ -10,6 +10,7 @@ import pytest
 import torch
 from torch import nn
 
+from gstx_torch.core import profiling
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import build
 from gstx_torch.kernels import decode_attn as kdecode
@@ -187,12 +188,19 @@ def test_attention_gate_on_the_card(dev, dh, lk, dtype):
 
 
 # the text FFN across the block-row rule (64 x 132 rows) and the block
-# edges; the visual FFN as the engine calls it; one and two F chunks
+# edges; the visual FFN as the engine calls it; one and two F chunks.  The
+# D = 768 rows run the warp-specialised kernel (kffn.takes_wgmma), also at
+# every D = 768 shape of the cells (the encoder's buckets, the disc and gen
+# scoring chunks), at a ragged M (a last block of 1 row, and of 1 short of
+# 64), and at one to four F chunks of 64
 FFN_SHAPES = [(70, 256, 1024), (33, 768, 3072), (17, 1024, 1024),
               (5, 128, 128), (63, 768, 3072), (64, 768, 3072),
               (65, 768, 3072), (8448, 768, 3072), (8449, 768, 3072),
               (3552, 1024, 1024), (40, 256, 128), (100, 768, 256),
-              (8500, 256, 512)]
+              (8500, 256, 512), (12288, 768, 3072), (18432, 768, 3072),
+              (24576, 768, 3072), (51200, 768, 3072), (128000, 768, 3072),
+              (12289, 768, 3072), (12351, 768, 3072), (12289, 768, 128),
+              (12289, 768, 256), (1, 768, 3072)]
 
 
 @pytest.mark.parametrize("m,d,f", FFN_SHAPES, ids=str)
@@ -221,6 +229,55 @@ def _ffn_entry(args, bm):
 def test_ffn_kernel_both_block_rows_match_plain(dev, m, d, f, bm):
     args = _ffn_args(dev, m, d, f)
     _close(_ffn_entry(args, bm), kffn.ffn_plain(*args))
+
+
+def _ffn_sm90_entry(args):
+    """The warp-specialised kernel's C entry (fused_ffn takes it where
+    kffn.takes_wgmma says so); returns the output, or raises on the entry's
+    error."""
+    x, w1, b1, w2, b2, g, be = args
+    out = torch.empty_like(x)
+    m, d = x.shape
+    build.check(build.library().gstx_ffn_sm90(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), g.data_ptr(), be.data_ptr(), out.data_ptr(), m, d,
+        w1.shape[0], 1e-12, torch.cuda.current_stream().cuda_stream),
+        "gstx_ffn_sm90")
+    return out
+
+
+def test_ffn_wgmma_kernel_matches_mma_sync_kernel(dev):
+    """At the encoder's 24,576 text rows the two designs agree within the
+    bf16 tolerance (not bit for bit: the products are summed in another
+    order)."""
+    args = _ffn_args(dev, 24576, 768, 3072)
+    _close(_ffn_sm90_entry(args),
+           _ffn_entry(args, kffn.block_rows(24576, 768)))
+
+
+def test_ffn_wgmma_entry_refuses_what_it_does_not_take(dev):
+    with pytest.raises(RuntimeError):  # D = 1,024
+        _ffn_sm90_entry(_ffn_args(dev, 8, 1024, 128))
+    with pytest.raises(RuntimeError):  # a partial F chunk
+        _ffn_sm90_entry(_ffn_args(dev, 8, 768, 160))
+
+
+def test_ffn_wgmma_counter_counts_the_d768_calls(dev):
+    """``ffn.calls`` counts every launch and ``ffn.wgmma_calls`` exactly
+    those of the D = 768 shapes (the disc chunk's text and visual FFN, the
+    encoder's, a small text call)."""
+    shapes = [(51200, 768, 3072), (7400, 1024, 1024), (256, 768, 3072),
+              (24576, 768, 3072), (3552, 1024, 1024)]
+    kffn.reset_launches()
+    profiling.reset()
+    with profiling.collecting():
+        for m, d, f in shapes:
+            kffn.fused_ffn(*_ffn_args(dev, m, d, f))
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["ffn.calls"] == len(shapes) == kffn.launches["fused_ffn"]
+    assert counters["ffn.wgmma_calls"] == 3 == sum(
+        kffn.takes_wgmma(d, f) for _, d, f in shapes)
 
 
 def test_ffn_entry_refuses_64_rows_past_768_columns(dev):

@@ -123,6 +123,27 @@ def test_ffn_block_rows(m, d, rows):
     assert kffn.block_rows(m, d) == rows
 
 
+# (M, D, F) -> whether the call takes the warp-specialised kernel: every
+# D = 768 text shape of the cells (the encoder's buckets, the
+# discriminative and generative scoring chunks) and the small ones (beam,
+# random_token's refill, one row), none of the D = 1,024 visual ones, no
+# other width, no partial F chunk.  The rows do not enter: phase 2 timed it
+# the faster at every D = 768 shape.
+WGMMA = [(96 * 128, 768, 3072, True), (96 * 192, 768, 3072, True),
+         (96 * 256, 768, 3072, True), (51200, 768, 3072, True),
+         (128000, 768, 3072, True), (12289, 768, 3072, True),
+         (8192, 768, 3072, True), (256, 768, 3072, True), (1, 768, 3072, True),
+         (24576, 768, 64, True), (3552, 1024, 1024, False),
+         (7400, 1024, 1024, False), (18500, 1024, 1024, False),
+         (128000, 1024, 3072, False), (24576, 896, 3072, False),
+         (24576, 640, 3072, False), (24576, 768, 3104, False)]
+
+
+@pytest.mark.parametrize("m,d,f,wgmma", WGMMA, ids=str)
+def test_ffn_takes_wgmma(m, d, f, wgmma):
+    assert kffn.takes_wgmma(d, f) is wgmma
+
+
 def test_ffn_block_rows_fills_the_card_once():
     # where the rule takes 64 rows the grid has at least one CTA per SM
     for m in range(8000, 9000, 7):
