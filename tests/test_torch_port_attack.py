@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import compare_ranks
 from fixtures import make_cli_env, make_tokenizer
 from gstx.cli import evaluate_gen_attack as jcli
 from gstx.cli.common import build_model as j_build_model
@@ -51,7 +52,6 @@ from gstx_torch.eval.rank_gen import batch_to_device, chunk_inputs, \
     flatten_gen
 from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models import mlm as tmlm
-from test_torch_port_eval import compare_ranks
 
 LOGIT_TOL = 1e-4
 GRAD_TOL = 1e-4

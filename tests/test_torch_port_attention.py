@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import init_tiny_params, make_gen_batch, tiny_enc_dec_configs
 from gstx.decode import sampler as jsampler
 from gstx.decode.dialog_engine import make_dialog_engine as j_make_engine

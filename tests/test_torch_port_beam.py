@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import init_tiny_params, tiny_enc_dec_configs
 from gstx.decode import beam as jbeam
 from gstx.decode.sampler import init_cache as j_init_cache

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import assert_same_records
 from fixtures import make_cc12m_caption_json, make_cli_env
 from gstx.cli import generate as jgen
 from gstx.cli.common import build_model as j_build_model
@@ -32,8 +33,6 @@ from gstx_torch.cli.common import apply_runtime_flags
 from gstx_torch.cli.common import parse_config as t_parse_config
 from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models import layers
-
-PPL_TOL = 1e-4  # composed model, f32 on the CPU
 
 
 @pytest.fixture(scope="module")
@@ -77,19 +76,6 @@ def port(argv, **kw):
         return tgen.main(argv, **kw)
     finally:
         kffn.enable(True)  # the module default, for later tests
-
-
-def assert_same_records(got, want):
-    assert len(want) > 0 and len(got) == len(want)
-    for g, w in zip(got, want):
-        assert {k: g[k] for k in ("image_id", "url", "caption")} == \
-            {k: w[k] for k in ("image_id", "url", "caption")}
-        assert len(g["dialog"]) == len(w["dialog"])
-        for gr, wr in zip(g["dialog"], w["dialog"]):
-            assert gr["question"] == wr["question"]
-            assert gr["answer"] == wr["answer"]
-            assert abs(gr["answer_ppl"] - wr["answer_ppl"]) <= \
-                PPL_TOL * abs(wr["answer_ppl"])
 
 
 # ---------------------------------------------------------------------- #

@@ -10,6 +10,7 @@ import pytest
 import torch
 from torch import nn
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from gstx_torch.core import profiling
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import build

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import (WORDS, init_tiny_params, make_cc12m_caption_json,
                       make_cc12m_dialog_json, make_visdial_env,
                       tiny_enc_dec_configs, write_vocab_file)

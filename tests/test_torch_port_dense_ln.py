@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from gstx.kernels.ffn import fused_dense_ln as jax_fused_dense_ln
 from gstx_torch.kernels import ffn as kffn
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import assert_rel
 from fixtures import make_cli_env
 from gstx.cli import train_disc as jcli
 from gstx.cli.common import build_model as j_build_model
@@ -51,7 +52,6 @@ from gstx_torch.models.encdec import GSTVisualDialog
 from gstx_torch.models.layers import Training
 from gstx_torch.train import train_disc as ttrain
 from gstx_torch.train import train_gen as tgen
-from test_torch_port_train import _assert_rel
 
 BLOCK_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -331,7 +331,7 @@ def test_one_step_losses_and_grads_match_jax(env, step_ref):
             for g in (got, want):
                 assert float(g.abs().max()) <= 1e-6 * top, name
             continue
-        _assert_rel(got, want, GRAD_TOL, name)
+        assert_rel(got, want, GRAD_TOL, name)
         checked += 1
     assert checked > 60
 

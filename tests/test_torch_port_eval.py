@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import (SCORE_TOL, compare_ranks, option_groups,
+                                record_scores)
 from fixtures import make_cli_env, make_visdial_json
 from gstx.cli import evaluate_disc as jdisc_cli
 from gstx.cli import evaluate_gen as jgen_cli
@@ -52,7 +54,6 @@ from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models.encdec import precast_
 from gstx_torch.models.encdec import candidate_log_likelihood as t_cll
 
-SCORE_TOL = 1e-4  # the composed model, f32 on the CPU
 KINDS = {"gen": (jgen_cli, tgen_cli, jrank_gen, trank_gen),
          "disc": (jdisc_cli, tdisc_cli, jrank_disc, trank_disc)}
 MODES = ["vd_eval_val", "vd_eval_test"]
@@ -310,23 +311,6 @@ def _argv(env, kind, mode, out, version="1.0"):
     return argv
 
 
-def _recording(monkeypatch, module, name, record):
-    """Wrap ``module.name`` (a scorer factory) so that every chunk's scores
-    land in ``record``."""
-    make = getattr(module, name)
-
-    def wrapped(*a, **kw):
-        score = make(*a, **kw)
-
-        def scored(*args):
-            out = score(*args)
-            record.append(np.asarray(out.detach() if torch.is_tensor(out)
-                                     else out))
-            return out
-        return scored
-    monkeypatch.setattr(module, name, wrapped)
-
-
 FACTORY = {"gen": "make_chunk_scorer", "disc": "make_nsp_scorer"}
 
 
@@ -348,7 +332,7 @@ def runs(env, tmp_path_factory):
                 rec, stats = [], {}
                 kw = {"stats_out": stats} if pkg == "port" else {}
                 with pytest.MonkeyPatch.context() as m:
-                    _recording(m, rank, FACTORY[kind], rec)
+                    record_scores(m, rank, FACTORY[kind], rec)
                     save = str(tmp_path_factory.mktemp(f"{pkg}_{kind}"))
                     result = cli.main(_argv(env, kind, mode, save, version),
                                       **kw)
@@ -358,37 +342,6 @@ def runs(env, tmp_path_factory):
     finally:
         mp.undo()
     return out
-
-
-def _option_groups(batch_or_items, kind):
-    """Per (image, round, option): the option's token sequence as bytes, to
-    find options whose sequences are identical."""
-    key = "dec_input_ids" if kind == "gen" else "tokens"
-    x = batch_or_items[key]
-    return x.reshape(x.shape[0], x.shape[1], x.shape[2], -1)
-
-
-def compare_ranks(got, want, seqs=None):
-    """Assert that the port's scores ``got`` rank like the JAX scores
-    ``want`` ([..., options]) except between near-tied pairs (different
-    options whose JAX scores lie within SCORE_TOL); return them as a
-    symmetric [rows, options, options] mask.  With ``seqs`` ([..., options,
-    L]), options of identical sequences must tie exactly in the port."""
-    got = got.reshape(-1, got.shape[-1])
-    want = want.reshape(-1, want.shape[-1])
-    near = np.zeros((got.shape[0],) + 2 * got.shape[-1:], dtype=bool)
-    for r in range(got.shape[0]):
-        dw = want[r][:, None] - want[r][None, :]
-        dg = got[r][:, None] - got[r][None, :]
-        same = np.zeros_like(dw, dtype=bool)
-        if seqs is not None:
-            s = seqs.reshape(-1, *seqs.shape[-2:])[r]
-            same = (s[:, None, :] == s[None, :, :]).all(-1)
-            assert (dg[same] == 0).all() and (dw[same] == 0).all()
-        tied = near[r] = (np.abs(dw) <= SCORE_TOL) & ~same
-        ok = same | tied | (np.sign(dg) == np.sign(dw))
-        assert ok.all(), f"row {r}: order differs outside near-ties"
-    return near
 
 
 @pytest.mark.parametrize("kind,mode,version", CLI_CASES,
@@ -408,7 +361,7 @@ def test_cli_matches_jax_cli(env, runs, kind, mode, version):
     assert stats["images"] == len(ds) and \
         stats["batches"] == -(-len(ds) // per_batch)
     batch = collate([ds.__getitem__(i, seed=0) for i in range(len(ds))])
-    seqs = _option_groups(batch, kind)
+    seqs = option_groups(batch, kind)
     b, rounds = seqs.shape[:2]
     tied = compare_ranks(tscores.reshape(seqs.shape[:3]),
                          jscores.reshape(seqs.shape[:3]), seqs)
@@ -486,7 +439,7 @@ def test_evaluator_scores_match_jax_at_both_chunk_sizes(env, runs,
     for cs in (500, 100):
         rec = []
         with monkeypatch.context() as m:
-            _recording(m, trank, FACTORY[kind], rec)
+            record_scores(m, trank, FACTORY[kind], rec)
             stats = {}
             results.append(evaluate(model, _loader(env, kind, mode, 2),
                                     mode=mode, chunk_size=cs,

@@ -9,6 +9,7 @@ import pytest
 import torch
 from torch import nn
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from gstx_torch.kernels import attention as kattn
 from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models import layers

@@ -8,6 +8,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
+
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "gstx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gstx")

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import make_cli_env
 from gstx.cli import inference as jinference
 from gstx.cli.common import build_model as j_build_model

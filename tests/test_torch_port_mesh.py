@@ -27,9 +27,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import socket
-import subprocess
-import sys
 import threading
 import types
 
@@ -39,6 +36,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import (SCORE_TOL as JAX_SCORE_TOL,
+                                assert_same_records, compare_ranks, finish,
+                                option_groups, record_scores, start,
+                                start_worker, stop)
 from fixtures import make_cli_env
 from gstx.cli import evaluate_disc as jdisc_cli
 from gstx.cli import evaluate_gen as jgen_cli
@@ -73,18 +74,12 @@ from gstx_torch.models import encdec as tencdec
 from gstx_torch.models import heads as theads
 from gstx_torch.train import train_disc as tdisc
 from gstx_torch.train import train_gen as ttrain
-from test_torch_port_cli import assert_same_records
-from test_torch_port_eval import _option_groups, _recording, compare_ranks
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "torch_mesh_rank.py")
 LOSS_TOL = 1e-6
 PARAM_TOL = 1e-5
 JAX_LOSS_TOL = 1e-5
 CONTROL_MISS = 1e-3
 SCORE_TOL = 1e-6
-JAX_SCORE_TOL = 1e-4   # tests/test_torch_port_eval.py's SCORE_TOL
-SPAWN_TIMEOUT = 180    # seconds, a generous ceiling for a loaded host
 
 
 # ---------------------------------------------------------------------- #
@@ -207,69 +202,6 @@ def test_backend_follows_the_device(monkeypatch):
 # ---------------------------------------------------------------------- #
 # spawning a group
 # ---------------------------------------------------------------------- #
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def start(name, tmp, cmd, world=2, extra_env=None, torchrun=False):
-    """Launch ``world`` ranks of ``cmd`` (the arguments after the
-    interpreter) over a fresh gloo group on the CPU, without waiting:
-    through ``python -m torch.distributed.run`` (its agent serves the
-    store), or as ``world`` processes given the launcher's environment by
-    hand (rank 0 serves it).  Returns what :func:`finish` takes."""
-    port = _free_port()
-    base = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                GSTX_PLATFORM="cpu", OMP_NUM_THREADS="1",
-                **(extra_env or {}))
-    if torchrun:
-        cmds = [([sys.executable, "-m", "torch.distributed.run",
-                  "--nproc_per_node", str(world), "--master_addr",
-                  "127.0.0.1", "--master_port", str(port)] + cmd, base)]
-    else:
-        cmds = [([sys.executable] + cmd, dict(
-            base, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-            LOCAL_WORLD_SIZE=str(world))) for r in range(world)]
-    procs = []
-    for i, (argv, env) in enumerate(cmds):
-        path = os.path.join(tmp, f"{name}.{i}.log")
-        log = open(path, "w")
-        procs.append((subprocess.Popen(argv, env=env, cwd=ROOT, stdout=log,
-                                       stderr=subprocess.STDOUT), log, path))
-    return name, procs
-
-
-def finish(started):
-    """Wait for :func:`start`'s processes; every one must exit 0."""
-    name, procs = started
-    try:
-        for p, _, _ in procs:
-            p.wait(timeout=SPAWN_TIMEOUT)
-    finally:
-        for p, log, _ in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    for i, (p, _, path) in enumerate(procs):
-        if p.returncode != 0:
-            raise AssertionError(f"process {i} of {name} exited "
-                                 f"{p.returncode}:\n"
-                                 f"{open(path).read()[-4000:]}")
-
-
-def start_worker(task, spec, tmp, world=2, extra_env=None, torchrun=False):
-    """:func:`start` on ``world`` ranks of the worker on ``task``."""
-    tmp = os.path.join(tmp, f"spawn_{task}")
-    os.makedirs(tmp)
-    spec = dict(spec, out=os.path.join(tmp, task))
-    spec_path = os.path.join(tmp, f"{task}.json")
-    json.dump(spec, open(spec_path, "w"))
-    return (start(task, tmp, [WORKER, task, spec_path], world, extra_env,
-                  torchrun), spec["out"], world)
 
 
 def worker_results(started):
@@ -407,11 +339,7 @@ def launched(env):
     # a run no test waited for (a deselected test) ends with the module
     for procs in [started[k][0] for k in ("same_device", "group", "three")
                   ] + [started["cli"]]:
-        for p, log, _ in procs[1]:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
+        stop(procs)
 
 
 @pytest.fixture(scope="module")
@@ -801,7 +729,7 @@ def eval_runs(env, group):
             kffn.enable(True)
         rec = []
         with pytest.MonkeyPatch.context() as m:
-            _recording(m, jrank, factory, rec)
+            record_scores(m, jrank, factory, rec)
             jres = jcli.main(_eval_argv(env, kind, f"jax_{kind}",
                                         ckpts[kind])
                              + ["-data_parallel", "1"])
@@ -832,7 +760,7 @@ def test_two_rank_evaluation_writes_the_single_process_metrics(
 
 @pytest.mark.parametrize("kind", list(EVAL_KINDS))
 def test_two_rank_evaluation_matches_the_jax_cli(env, eval_runs, kind):
-    """Scores within tests/test_torch_port_eval.py's SCORE_TOL of the JAX
+    """Scores within tests/torch_port_harness.py's SCORE_TOL of the JAX
     CLI's; the metrics equal, up to the near-tied option pairs that test
     bounds (each moves one rank by one place)."""
     run = eval_runs[kind]
@@ -846,7 +774,7 @@ def test_two_rank_evaluation_matches_the_jax_cli(env, eval_runs, kind):
     ds = cls(tc, ttok.BertTokenizer(vocab_path=tc.vocab_path),
              mode="vd_eval_val")
     batch = collate([ds.__getitem__(i, seed=0) for i in range(len(ds))])
-    seqs = _option_groups(batch, kind)
+    seqs = option_groups(batch, kind)
     b, rounds = seqs.shape[:2]
     tied = compare_ranks(scores.reshape(seqs.shape[:3]),
                          jscores.reshape(seqs.shape[:3]), seqs)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import init_tiny_params, make_gen_batch, tiny_enc_dec_configs
 from gstx.core.checkpoint import to_torch_state_dict
 from gstx.models.decoder import DecoderLayer as JDecoderLayer

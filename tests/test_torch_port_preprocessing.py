@@ -18,6 +18,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import (WORDS, make_tokenizer, make_visdial_json,
                       write_vocab_file)
 from gstx.data.feature_store import FeatureStoreReader as JReader

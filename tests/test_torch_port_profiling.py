@@ -10,6 +10,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from gstx_torch.core import profiling
 
 CLOCK_NS = 50_000  # a stamp against its profiler event

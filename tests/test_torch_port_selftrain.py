@@ -12,6 +12,7 @@ import types
 import pytest
 import torch
 
+import torch_port_harness  # noqa: F401  (the CPU thread rule)
 from fixtures import make_cc12m_caption_json, make_cli_env
 from gstx.cli import selftrain as jselftrain
 from gstx_torch.cli import selftrain as tselftrain

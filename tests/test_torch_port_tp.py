@@ -28,7 +28,7 @@ Tolerances:
   * greedy f32 engine tokens identical to JAX's, static and dynamic
     buckets (tests/test_dialog_engine_mesh.py:141-169), perplexities
     within 1e-4 relative;
-  * evaluate_gen's scores within tests/test_torch_port_eval.py's SCORE_TOL
+  * evaluate_gen's scores within tests/torch_port_harness.py's SCORE_TOL
     of the JAX CLI's; the attack evaluation's and generation's results
     equal to one process's; the greedy REPL transcript equal to JAX's.
 """
@@ -38,9 +38,6 @@ import dataclasses
 import io
 import json
 import os
-import signal
-import subprocess
-import sys
 import types
 
 import jax
@@ -49,6 +46,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import (SCORE_TOL as JAX_SCORE_TOL, compare_ranks,
+                                finish, option_groups, record_scores, start,
+                                stop)
 from fixtures import make_cli_env, make_gen_batch
 from gstx.cli import evaluate_gen as jgen_cli
 from gstx.cli import inference as jinference
@@ -81,8 +81,6 @@ from gstx_torch.kernels import ffn as kffn
 from gstx_torch.models import encdec as tencdec
 from gstx_torch.models.encdec import GSTVisualDialog
 from gstx_torch.train import optim as toptim
-from test_torch_port_eval import _option_groups, _recording, compare_ranks
-from test_torch_port_mesh import _free_port, finish
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_tp_rank.py")
@@ -93,7 +91,6 @@ STEP_RTOL, STEP_ATOL = 2e-5, 2e-6   # tests/test_tensor_parallel.py:80
 CKPT_TOL = 1e-5
 MOMENT_ATOL = 1e-8    # the gradients' f32 summation order, at ~1e-3
 PPL_TOL = 1e-4
-JAX_SCORE_TOL = 1e-4  # tests/test_torch_port_eval.py's SCORE_TOL
 STEP_IMAGES = 4
 STEP_ROWS = 4
 QUESTIONS = ["is there a dog", "what color is it"]
@@ -465,38 +462,21 @@ def launched(env):
         wide_dec=dict(hidden_size=128, num_attention_heads=2,
                       intermediate_size=256),
         questions=QUESTIONS, max_turns=len(QUESTIONS), **_argvs(env, "tp"))
-    started = _launch(env, "spawn", spec, MP)
+    started = start("tp", *_worker_cmd(env, "spawn", spec), MP,
+                    torchrun=True)
     yield started, spec
-    _stop(started)
+    stop(started)  # a test that never waits for the ranks ends them here
 
 
-def _launch(env, name, spec, world):
-    """``world`` ranks of the worker on ``spec`` through ``python -m
-    torch.distributed.run``, in a session of their own (a test that never
-    waits for the ranks ends them with the launcher)."""
+def _worker_cmd(env, name, spec):
+    """Write ``spec`` into a directory ``name`` of its own, with the path
+    of the ranks' results: (the directory, the worker's command)."""
     tmp = os.path.join(env["tmp"], name)
     os.makedirs(tmp)
     spec["out"] = os.path.join(tmp, "tp")
     path = os.path.join(tmp, "spec.json")
     json.dump(spec, open(path, "w"))
-    log_path = os.path.join(tmp, "tp.log")
-    log = open(log_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         str(world), "--master_addr", "127.0.0.1", "--master_port",
-         str(_free_port()), WORKER, path], cwd=ROOT, stdout=log,
-        stderr=subprocess.STDOUT,
-        env=dict(os.environ, GSTX_PLATFORM="cpu", OMP_NUM_THREADS="1"),
-        start_new_session=True)
-    return "tp", [(proc, log, log_path)]
-
-
-def _stop(started):
-    for proc, log, _ in started[1]:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-        log.close()
+    return tmp, [WORKER, path]
 
 
 @pytest.fixture(scope="module")
@@ -700,7 +680,7 @@ def one_process(env):
         kffn.enable(True)
     rec = []
     with pytest.MonkeyPatch.context() as m:
-        _recording(m, jrank_gen, "make_chunk_scorer", rec)
+        record_scores(m, jrank_gen, "make_chunk_scorer", rec)
         jres = jgen_cli.main(env["args"] + [
             "-mode", "vd_eval_val", "-start_path", env["ckpt"],
             "-save_path", os.path.join(env["tmp"], "eval_jax"),
@@ -739,7 +719,7 @@ def test_evaluate_gen_matches_the_jax_cli(env, ranks, one_process):
     ds = tvisdial.VisdialGenDataset(
         tc, ttok.BertTokenizer(vocab_path=tc.vocab_path), mode="vd_eval_val")
     batch = collate([ds.__getitem__(i, seed=0) for i in range(len(ds))])
-    seqs = _option_groups(batch, "gen")
+    seqs = option_groups(batch, "gen")
     compare_ranks(got.reshape(seqs.shape[:3]), jscores.reshape(
         seqs.shape[:3]), seqs)
     assert rank0["result"] == metrics and rank1["result"] == metrics
@@ -818,11 +798,8 @@ def test_two_replicas_of_two_shards_step_equals_one_process(env, launched):
     updates pins JAX's (2, 2) mesh.  ``slow``: four ranks take about 40 s
     of a loaded host."""
     spec = dict(launched[1], parts=["steps"], dp=2, ckpt=None)
-    started = _launch(env, "spawn_2x2", spec, 4)
-    try:
-        finish(started)
-    finally:
-        _stop(started)
+    finish(start("tp", *_worker_cmd(env, "spawn_2x2", spec), 4,
+                 torchrun=True))
     ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False)
              for r in range(4)]
     for r in ranks:
@@ -858,11 +835,9 @@ def test_four_shards_keep_a_vocab_that_does_not_divide_whole(env,
                             seed=3).eval()
     spec["state"] = os.path.join(env["tmp"], "vocab258.pt")
     torch.save(model.state_dict(), spec["state"])
-    started = _launch(env, "spawn_mp4", spec, 4)
-    try:
-        finish(started)
-    finally:
-        _stop(started)
+    started = start("tp", *_worker_cmd(env, "spawn_mp4", spec), 4,
+                    torchrun=True)
+    finish(started)
     ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False)
              for r in range(4)]
     b = {k: torch.from_numpy(v) for k, v in _score_batch(

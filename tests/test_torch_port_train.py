@@ -27,6 +27,7 @@ import optax
 import pytest
 import torch
 
+from torch_port_harness import assert_rel
 from fixtures import (init_tiny_params, make_cc12m_dialog_json, make_cli_env,
                       make_train_rows_batch, tiny_enc_dec_configs)
 from gstx.core.checkpoint import convert_torch_state_dict, \
@@ -123,13 +124,6 @@ def step_ref(request):
                 new=state_dict_from_jax(jax.device_get(new)))
 
 
-def _assert_rel(got, want, tol, what):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    scale = float(np.abs(want).max()) if want.size else 0.0
-    err = float(np.abs(got - want).max()) if want.size else 0.0
-    assert err <= tol * max(scale, 1e-30), (what, err, scale)
-
-
 # ---------------------------------------------------------------------- #
 # the kernels under autograd
 # ---------------------------------------------------------------------- #
@@ -181,10 +175,10 @@ def test_function_grads_match_jax_vjp(kind, m):
               .requires_grad_(True) for i, a in enumerate(args)]
     out = tfn(*t_args)
     out.backward(torch.from_numpy(cot))
-    _assert_rel(out.detach(), want, KERNEL_GRAD_TOL, "value")
+    assert_rel(out.detach(), want, KERNEL_GRAD_TOL, "value")
     for i, (t, g) in enumerate(zip(t_args, want_g)):
         g = np.asarray(g).T if i in _WEIGHTS[kind] else np.asarray(g)
-        _assert_rel(t.grad, g, KERNEL_GRAD_TOL, f"grad {i}")
+        assert_rel(t.grad, g, KERNEL_GRAD_TOL, f"grad {i}")
 
 
 def test_ffn_backward_does_not_round_the_hidden():
@@ -248,7 +242,7 @@ def test_one_step_loss_and_grads_match_jax(step_ref):
         # no gradient where a frozen layer stands between the parameter
         # and the loss; JAX's stop_gradient gives zeros there
         got = p.grad if p.grad is not None else torch.zeros_like(p)
-        _assert_rel(got, want, GRAD_TOL, name)
+        assert_rel(got, want, GRAD_TOL, name)
         checked += 1
     assert checked > 50
 
@@ -346,7 +340,7 @@ def test_optimizer_trajectory(optim_ref, oracle):
             want = {k: v.numpy() for k, v in twin.state_dict().items()}
             got = dict(model.state_dict())
         for name, p in named:
-            _assert_rel(got[name], want[name], OPTIM_TOL,
+            assert_rel(got[name], want[name], OPTIM_TOL,
                         f"step {step} {name}")
 
 
@@ -517,7 +511,7 @@ def test_remat_policies_equal_no_remat_with_dropout(dropout_model, policy):
     assert abs(got_loss - want_loss) <= REMAT_TOL * abs(want_loss)
     assert got.keys() == want.keys()
     for n in want:
-        _assert_rel(got[n], want[n], REMAT_TOL, n)
+        assert_rel(got[n], want[n], REMAT_TOL, n)
     # dropout really acted: another seed gives another loss
     other, _ = _loss_and_grads(model, rows, Training(12, None))
     assert other != want_loss

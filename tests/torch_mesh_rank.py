@@ -25,6 +25,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import torch_port_harness  # noqa: E402,F401  (the CPU thread rule)
 from gstx_torch.core import mesh  # noqa: E402
 from gstx_torch.core.config import GSTConfig  # noqa: E402
 from gstx_torch.eval import rank_gen  # noqa: E402

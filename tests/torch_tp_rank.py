@@ -23,6 +23,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import torch_port_harness  # noqa: E402,F401  (the CPU thread rule)
 from gstx_torch.core import checkpoint as ckpt_lib  # noqa: E402
 from gstx_torch.core import mesh  # noqa: E402
 from gstx_torch.core.config import (DecoderConfig, EncoderConfig,  # noqa: E402
@@ -292,7 +293,6 @@ PARTS = {"forward": forward, "steps": steps, "engine": engine,
 
 def main():
     spec = json.load(open(sys.argv[1]))
-    torch.set_num_threads(1)
     backend = mesh.init_distributed("cpu")
     axes = mesh.make_groups(spec.get("dp", 1), spec.get("mp", 2), "cpu")
     out = {"backend": backend, "rank": mesh.process_index()}
